@@ -1,0 +1,138 @@
+"""Kernels K1 and K2: the gap-decode FSM phases (csrc/gap_decode.cu).
+
+Replace bmh_tpu/ops/pallas_decode.py `phase_a` and `phase_b`.  The plain
+versions are bmh_tpu's `phase_a_scan` / `phase_b_scan` written with
+tensors, reading bits from the packed words; a CPU tensor runs them.
+
+Inputs: wext (wpc+1, NC) int32 holding the uint32 payload words in
+words_ext layout (ops/huffman.py), count_t (32, NC) int32 per-chunk
+per-length codeword counts, maxl the longest code length to consider.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+GAPS = 32
+AMAX = 256  # canonical-index clip ceiling (257-symbol RLE0 alphabet)
+_SRC = "gap_decode.cu"
+
+
+def _bit(w64: torch.Tensor, t: int) -> torch.Tensor:
+    return (w64[t >> 5] >> (31 - (t & 31))) & 1
+
+
+def _count_at(ct: torch.Tensor, ln: torch.Tensor, maxl: int) -> torch.Tensor:
+    """ct[ln, chunk] for 1 <= ln <= maxl, else 0."""
+    c = torch.gather(ct, 0, ln.clamp(max=ct.shape[0] - 1))
+    return torch.where(ln <= maxl, c, 0)
+
+
+def phase_a_plain(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
+                  maxl: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (cnt_map, exit_map), both (32, NC) int32: per (gap, chunk) lane,
+    the symbols completed and the exit gap past the chunk end."""
+    nc = wext.shape[1]
+    dev = wext.device
+    w64 = wext.to(torch.int64) & 0xFFFFFFFF
+    ct = count_t.to(torch.int64)
+    gaps = torch.arange(GAPS, device=dev)[:, None]
+    z = torch.zeros((GAPS, nc), dtype=torch.int64, device=dev)
+    r, ln, c, cnt, ex = z, z, z, z, z - 1
+    for t in range(chunk_bits + GAPS):
+        active = (ex < 0) & (t >= gaps)
+        r_n = 2 * (r - c) + _bit(w64, t)[None, :]
+        ln_n = ln + 1
+        c_n = _count_at(ct, ln_n, maxl)
+        complete = (c_n > 0) & (r_n >= 0) & (r_n < c_n)
+        reset = complete | (ln_n > maxl)
+        fire = active & complete
+        r = torch.where(active, torch.where(reset, 0, r_n), r)
+        ln = torch.where(active, torch.where(reset, 0, ln_n), ln)
+        c = torch.where(active, torch.where(reset, 0, c_n), c)
+        cnt = torch.where(fire, cnt + 1, cnt)
+        ex = torch.where(fire & (t + 1 >= chunk_bits), t + 1 - chunk_bits, ex)
+    return cnt.to(torch.int32), ex.clamp(0, GAPS - 1).to(torch.int32)
+
+
+def phase_b_plain(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor,
+                  chunk_bits: int, maxl: int) -> torch.Tensor:
+    """-> (chunk_bits + 32, NC) int32: the canonical index completed at each
+    step of each chunk's winning lane (clipped to 256), or -1."""
+    nc = wext.shape[1]
+    dev = wext.device
+    steps = chunk_bits + GAPS
+    w64 = wext.to(torch.int64) & 0xFFFFFFFF
+    ct = count_t.to(torch.int64)
+    e = entry.to(torch.int64)[None, :]
+    z = torch.zeros((1, nc), dtype=torch.int64, device=dev)
+    r, ln, c, o, done = z, z, z, z, torch.zeros((1, nc), dtype=torch.bool, device=dev)
+    out = torch.empty((steps, nc), dtype=torch.int32, device=dev)
+    for t in range(steps):
+        active = ~done & (t >= e)
+        r_n = 2 * (r - c) + _bit(w64, t)[None, :]
+        ln_n = ln + 1
+        c_n = _count_at(ct, ln_n, maxl)
+        complete = (c_n > 0) & (r_n >= 0) & (r_n < c_n)
+        reset = complete | (ln_n > maxl)
+        fire = active & complete
+        out[t] = torch.where(fire, (o + r_n).clamp(0, AMAX), -1)[0]
+        r = torch.where(active, torch.where(reset, 0, r_n), r)
+        ln = torch.where(active, torch.where(reset, 0, ln_n), ln)
+        c = torch.where(active, torch.where(reset, 0, c_n), c)
+        o = torch.where(active, torch.where(reset, 0, o + c_n), o)
+        done = done | (fire & (t + 1 >= chunk_bits))
+    return out
+
+
+def _check(wext, count_t, name):
+    if (wext.dtype != torch.int32 or count_t.dtype != torch.int32
+            or not wext.is_contiguous() or not count_t.is_contiguous()
+            or count_t.shape != (GAPS, wext.shape[1])
+            or count_t.device != wext.device):
+        raise ValueError(f"{name}: needs contiguous int32 wext (wpc+1, NC) "
+                         "and count_t (32, NC) on one device")
+
+
+def phase_a(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
+            maxl: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if not _build.on_card(wext, "phase_a"):
+        return phase_a_plain(wext, count_t, chunk_bits, maxl)
+    _check(wext, count_t, "phase_a")
+    nc = wext.shape[1]
+    cnt = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
+    ex = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
+    fn = _build.lib(_SRC).bmh_phase_a
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.LAUNCHES["gap_decode_phase_a"] += 1
+    _build.check(fn(wext.data_ptr(), count_t.data_ptr(), cnt.data_ptr(),
+                    ex.data_ptr(), nc, chunk_bits, maxl,
+                    torch.cuda.current_stream(wext.device).cuda_stream),
+                 "gap_decode_phase_a")
+    return cnt, ex
+
+
+def phase_b(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor,
+            chunk_bits: int, maxl: int) -> torch.Tensor:
+    if not _build.on_card(wext, "phase_b"):
+        return phase_b_plain(wext, count_t, entry, chunk_bits, maxl)
+    _check(wext, count_t, "phase_b")
+    nc = wext.shape[1]
+    if (entry.dtype != torch.int32 or entry.shape != (nc,)
+            or not entry.is_contiguous() or entry.device != wext.device):
+        raise ValueError("phase_b: needs contiguous int32 (NC,) entry gaps")
+    out = torch.empty((chunk_bits + GAPS, nc), dtype=torch.int32, device=wext.device)
+    fn = _build.lib(_SRC).bmh_phase_b
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.LAUNCHES["gap_decode_phase_b"] += 1
+    _build.check(fn(wext.data_ptr(), count_t.data_ptr(), entry.data_ptr(),
+                    out.data_ptr(), nc, chunk_bits, maxl,
+                    torch.cuda.current_stream(wext.device).cuda_stream),
+                 "gap_decode_phase_b")
+    return out

@@ -1,0 +1,57 @@
+"""RLE0: zero-run coding of the MTF stream (bzip2-style RUNA/RUNB).
+
+Port of bmh_tpu/ops/rle.py's encoder.  Maximal runs of MTF code 0 become
+their length in bijective base 2 over RUNA=0 / RUNB=1 (digits LSB-first);
+every non-zero code c becomes symbol c+1, so the Huffman alphabet is 257.
+The inverse is fused into the gap decode (ops/huffman.py).
+
+Batched: (B, Nmax) rows with per-row true lengths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+RLE_ALPHABET = 257
+
+
+def _floor_log2_p1(r: torch.Tensor) -> torch.Tensor:
+    """floor(log2(r+1)) for 0 <= r < 2^24-1, elementwise: the float32
+    exponent of r+1, exact because every value below 2^24 is representable."""
+    rp = r + 1
+    exp = (rp.to(torch.float32).view(torch.int32) >> 23) - 127
+    return torch.where(rp > 0, exp.to(r.dtype), torch.zeros_like(r))
+
+
+def rle0_encode(codes: torch.Tensor, n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """MTF codes -> RLE0 symbols.
+
+    codes: (B, Nmax) uint8, first n[b] valid in row b.  Returns (syms
+    (B, Nmax) int64 in [0, 256], zero past m; m (B,) int64 symbol counts).
+    """
+    b, nmax = codes.shape
+    dev = codes.device
+    pos = torch.arange(nmax, device=dev).expand(b, nmax)
+    valid = pos < n[:, None]
+    c = codes.to(torch.int64)
+    z = (c == 0) & valid
+    z_prev = torch.nn.functional.pad(z[:, :-1], (1, 0))
+    run_start = z & ~z_prev
+    start_pos = torch.cummax(torch.where(run_start, pos, -1), dim=1).values
+    # next non-zero-or-invalid position at/after i (runs end at n too)
+    nz_pos = torch.where(~z, pos, nmax)
+    nxt = torch.flip(torch.cummin(torch.flip(nz_pos, [1]), dim=1).values, [1])
+
+    r = nxt - start_pos            # run length, valid on zero positions
+    j = pos - start_pos            # index within the run
+    d = _floor_log2_p1(r)          # digit count
+    bits = r + 1 - (1 << d)
+    digit = (bits >> j.clamp(min=0, max=62)) & 1
+
+    emit = valid & torch.where(z, j < d, torch.ones_like(z))
+    sym = torch.where(z, digit, c + 1)
+    out_idx = torch.cumsum(emit.to(torch.int64), dim=1) - emit.to(torch.int64)
+    m = emit.sum(dim=1)
+    out = torch.zeros(b, nmax + 1, dtype=torch.int64, device=dev)
+    out.scatter_(1, torch.where(emit, out_idx, nmax), sym * emit)
+    return out[:, :nmax], m

@@ -1,0 +1,169 @@
+"""Where the time goes: per-stage times of one 32-block, 128 KiB batch and a
+device-time profile of the whole 9 MiB smoke stream, on one CUDA card.
+
+    python -m bmh_tpu_torch.tools.profile_stages [--seed 0] [--out PATH]
+
+Stage times are host-clock medians of 5 warm runs, each stage ended by
+torch.cuda.synchronize().  The profile (torch.profiler, CPU + CUDA) runs
+one warm compress_bytes and one decompress_bytes of the stream and reports
+wall time, summed device kernel time, the idle share 1 - device/wall, and
+the kernels with the most device time.  Prints one JSON object per section and,
+with --out, also writes them all to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+from .. import api
+from ..models import pipeline
+from ..ops import bwt, huffman, mtf, rle
+from ..utils import config
+from ..utils.synth import smoke_input
+
+BLOCK = 1 << 17
+
+
+def _timed(fn, reps=5):
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return out, statistics.median(times)
+
+
+def compress_stages(blocks, dev) -> dict:
+    cfg = config.DEFAULT
+    batch = np.zeros((len(blocks), BLOCK), np.uint8)
+    for i, b in enumerate(blocks):
+        batch[i, : b.size] = b
+    data = torch.from_numpy(batch).to(dev)
+    n = torch.tensor([b.size for b in blocks], device=dev)
+    ms = {}
+    (last, _, _, _), ms["bwt_forward_cp"] = _timed(
+        lambda: bwt.bwt_forward_cp(data, n, cfg.cursor_stride))
+    codes, ms["mtf_forward"] = _timed(lambda: mtf.mtf_forward(last, n, cfg.mtf_chunk))
+    (syms, m), ms["rle0_encode"] = _timed(lambda: rle.rle0_encode(codes, n))
+    freqs, ms["histogram"] = _timed(lambda: huffman.histogram(syms, m, rle.RLE_ALPHABET))
+    lens, ms["code_lengths_device"] = _timed(lambda: huffman.code_lengths_device(freqs))
+    canon, ms["canonical_codes_device"] = _timed(
+        lambda: huffman.canonical_codes_device(lens))
+    _, ms["encode_bitpack"] = _timed(lambda: huffman.encode_bitpack(syms, m, lens, canon))
+    arrs = list(blocks)
+    _, ms["whole_batch"] = _timed(lambda: pipeline._compress_batch(
+        arrs, list(range(len(arrs))), BLOCK, dev, cfg.cursor_stride))
+    return ms
+
+
+def decompress_stages(blob: bytes, dev) -> dict:
+    cfg = config.DEFAULT
+    infos = api._parse(blob)[0]
+    idxs = list(range(len(infos)))
+    ms = {}
+    staged, ms["host_stage_flat"] = _timed(
+        lambda: pipeline._stage_flat_np(infos, idxs, cfg.decode_chunk_bits))
+    words, lens_all, seg_start, seg_start_idx, seg_id, m, ns, shifts, maxl = staged
+    kcp = max(BLOCK // cfg.cursor_stride - 1, 1)
+    cps_np = np.zeros((len(idxs), kcp), np.int64)
+    for row, i in enumerate(idxs):
+        cps_np[row, : len(infos[i]["cps"])] = infos[i]["cps"]
+
+    def upload():
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                (words.view(np.int32), lens_all, seg_start, seg_start_idx,
+                 seg_id, m, ns, shifts, cps_np)]
+
+    t, ms["upload"] = _timed(upload)
+    w, la, ss, ssi, sid, mt, nt, sh, cps = t
+    cb = cfg.decode_chunk_bits
+
+    def tables():
+        count_b, sym_b = huffman.decode_tables_device(la)
+        count_t = count_b[sid].T.to(torch.int32).contiguous()
+        return count_t, sym_b, huffman.words_ext(w, cb)
+
+    (count_t, sym_b, wext), ms["decode_tables"] = _timed(tables)
+    (codes, _), ms["gap_decode_rle0_flat"] = _timed(
+        lambda: huffman.gap_decode_rle0_flat(wext, count_t, ss, ssi, sid, sym_b,
+                                             mt, nt, BLOCK, cb, maxl))
+    last, ms["mtf_inverse"] = _timed(lambda: mtf.mtf_inverse(codes, nt, cfg.imtf_chunk))
+    _, ms["bwt_inverse_cursors"] = _timed(
+        lambda: bwt.bwt_inverse_cursors(last, sh, cps, nt, cfg.cursor_stride))
+    _, ms["whole_decode_flat"] = _timed(
+        lambda: pipeline.decode_flat(w, la, ss, ssi, sid, mt, nt, sh, cps, BLOCK,
+                                     cb, maxl, cfg.cursor_stride).cpu())
+    return ms
+
+
+def profile(fn, label: str) -> dict:
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    # kernel-level events only: an aten op's self device time is the time
+    # of the kernels it launched, which appear again as their own events
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "section": f"profile_{label}", "wall_ms": wall, "device_ms": device_ms,
+        "idle_share": 1 - device_ms / wall if wall > 0 else None,
+        "top": [{"kernel": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in top],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", help="also write the sections to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_stages needs a CUDA card")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    data = smoke_input(args.seed)
+    arr = np.frombuffer(data, np.uint8)
+    blocks, _ = api._rle1_blocks([arr[i:i + BLOCK] for i in range(0, 32 * BLOCK, BLOCK)])
+    blob_head = api.compress_bytes(data[: 32 * BLOCK], block_size=BLOCK, device=dev)
+    blob = api.compress_bytes(data, block_size=BLOCK, device=dev)
+    sections = [
+        {"section": "card", "card": card, "torch": torch.__version__,
+         "cuda": torch.version.cuda},
+        {"section": "compress_stages_ms_32x128KiB_text", **compress_stages(blocks, dev)},
+        {"section": "decompress_stages_ms_32x128KiB_text",
+         **decompress_stages(blob_head, dev)},
+        profile(lambda: api.compress_bytes(data, block_size=BLOCK, device=dev),
+                "compress_9MiB"),
+        profile(lambda: api.decompress_bytes(blob, device=dev), "decompress_9MiB"),
+    ]
+    for s in sections:
+        print(json.dumps(s))
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(sections, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    main()
