@@ -1,14 +1,22 @@
 """Batched block codec on one torch device — the port's backend.
 
-Compress (bmh_tpu's classic full-rounds program, `compress_full_fn`): BWT
-with checkpoints -> MTF -> RLE0 -> histogram -> two-queue code lengths ->
-canonical codes -> bitpack, for a batch of blocks at once, then one
-device->host copy of [per-block metadata | compacted payload words].
+Compress, bmh_tpu's two programs: BWT with checkpoints -> MTF -> RLE0 ->
+histogram -> two-queue code lengths -> canonical codes -> bitpack, for a
+batch of blocks at once, then one device->host copy of [per-block metadata
+| compacted payload words].  The BWT runs the sparse/adaptive program
+(`compress_sparse_fn`: a few doubling rounds, the adaptive handoff, sparse
+refinement of the tied positions) unless the batch looks run-dominated,
+which takes the full-rounds program (`compress_full_fn`).
 
-Decompress (bmh_tpu's flat route): host staging of the batch's payloads on
-one flat chunk axis -> fused gap decode + RLE0 inverse (kernels K1, K2) ->
-inverse MTF (K3) -> LF-cursor inverse BWT (K4) -> row compaction, with
-each block's decoded total riding the same single copy back.
+Decompress, bmh_tpu's three routes:
+* flat (aperiodic blocks): host staging of the batch's payloads on one
+  flat chunk axis -> fused gap decode + RLE0 inverse (kernels K1, K2) ->
+  inverse MTF (K3) -> LF-cursor inverse BWT (K4) -> row compaction;
+* periodic (no checkpoints): the same gap decode to RLE0 symbols, then
+  RLE0 inverse, inverse MTF (K3) and the doubling inverse BWT;
+* single-symbol (no payload): the constant RLE0 stream, then the inverses.
+The flat and periodic routes bring each block's decoded total back in the
+same single copy, and a total that differs from the block length raises.
 
 Blocks are grouped by power-of-two size bucket and batched up to
 `max_dispatch` blocks.  PyTorch runs eagerly, so no program cache exists
@@ -29,6 +37,13 @@ from ..ops import rle as ops_rle
 from ..utils import config as config_mod
 
 A = ops_rle.RLE_ALPHABET
+# minimum compact-set capacity of the sparse refinement
+_SPARSE_MIN = 4096
+# Prefix doubling runs until every block of a batch converges, so one block
+# of long runs forces the most rounds on all of them.  Blocks whose sampled
+# self-similarity at distance 2048 exceeds this go to their own batches and
+# the full-rounds program (bmh_tpu's threshold, from Calgary).
+_PATHOLOGICAL_SELF_SIM = 0.45
 
 
 def _next_pow2(x: int) -> int:
@@ -49,28 +64,119 @@ def _chunks(seq: list, size: int | None = None):
     return [seq[i:i + size] for i in range(0, len(seq), size)]
 
 
+def _looks_pathological(blk: np.ndarray) -> bool:
+    if blk.size < 8192:
+        return False
+    return float(np.mean(blk[:-2048:37] == blk[2048::37])) > _PATHOLOGICAL_SELF_SIM
+
+
 # ---------------------------------------------------------------------------
 # Compress
 # ---------------------------------------------------------------------------
 
-def compress_full_fn(data: torch.Tensor, n: torch.Tensor, stride: int):
-    """Whole compress of a (B, Nmax) batch: raw bytes -> packed words.
-
-    Returns (words (B, W) int64 uint32 values, total_bits, lens (B, 257),
-    freqs (B, 257), m RLE0 counts, shift, cps, aperiodic)."""
+def _encode(last: torch.Tensor, n: torch.Tensor):
+    """Last column -> (words, total_bits, lens, freqs, m RLE0 counts)."""
     cfg = config_mod.DEFAULT
-    last, shift, cps, aperiodic = ops_bwt.bwt_forward_cp(data, n, stride)
     codes = ops_mtf.mtf_forward(last, n, cfg.mtf_chunk)
     syms, m = ops_rle.rle0_encode(codes, n)
     freqs = ops_huf.histogram(syms, m, A)
     lens = ops_huf.code_lengths_device(freqs)
     canon = ops_huf.canonical_codes_device(lens)
     words, total_bits = ops_huf.encode_bitpack(syms, m, lens, canon)
-    return words, total_bits, lens, freqs, m, shift, cps, aperiodic
+    return words, total_bits, lens, freqs, m
 
 
-def _compress_batch(arrs, idxs, nmax: int, device, stride: int):
-    """Compress one batch; returns its per-block result dicts."""
+def compress_full_fn(data: torch.Tensor, n: torch.Tensor, stride: int):
+    """Whole compress of a (B, Nmax) batch by the full-rounds program.
+
+    Returns (words (B, W) int64 uint32 values, total_bits, lens (B, 257),
+    freqs (B, 257), m RLE0 counts, shift, cps, aperiodic)."""
+    last, shift, cps, aperiodic = ops_bwt.bwt_forward_cp(data, n, stride)
+    return (*_encode(last, n), shift, cps, aperiodic)
+
+
+def compress_sparse_fn(data: torch.Tensor, n: torch.Tensor, stride: int,
+                       b_pad: int):
+    """Whole compress of a (B, Nmax) batch by the sparse/adaptive program;
+    b_pad is the batch size rounded up to a power of two, which sizes the
+    compact set.  Returns compress_full_fn's tuple."""
+    rank = sparse_ranks(data, n, b_pad)
+    last, shift, cps, aperiodic = ops_bwt.bwt_finish_cp(data, n, rank, stride)
+    return (*_encode(last, n), shift, cps, aperiodic)
+
+
+def _sparse_cap(b_pad: int, nmax: int) -> int:
+    """Compact-set capacity: 1/sparse_cap_div of the padded batch, at least
+    _SPARSE_MIN, at most the batch itself.  With b_pad and nmax powers of
+    two it is one too, so the compact sorts fit K5's envelope."""
+    div = config_mod.DEFAULT.sparse_cap_div
+    return min(max((b_pad * nmax) // div, _SPARSE_MIN), b_pad * nmax)
+
+
+def sparse_ranks(data: torch.Tensor, n: torch.Tensor, b_pad: int) -> torch.Tensor:
+    """Final BWT ranks by bmh_tpu's adaptive handoff (_compress_core with
+    hard=False).
+
+    Doubling rounds stop at h = 2^(full_rounds + 1).  While the batch's tied
+    positions exceed the compact capacity, whole-batch rounds go on (only
+    rows with ties are sorted: for the others a round changes nothing); the
+    tied set is then refined sparsely from the gap reached.  One sync per
+    round reads the per-row tie counts."""
+    cfg = config_mod.DEFAULT
+    nmax = data.shape[1]
+    m_cap = _sparse_cap(b_pad, nmax)
+    h_s = 1 << (cfg.full_rounds + 1)
+    rank, tied, _, _ = ops_bwt.bwt_rounds(data, n, h_s)
+    cnt = tied.sum(dim=1).tolist()
+    while sum(cnt) > m_cap and h_s < nmax:
+        rows = torch.tensor([r for r, c in enumerate(cnt) if c], device=data.device)
+        sub, sub_tied, h_s, _ = ops_bwt.round_step(rank[rows], tied[rows], h_s, n[rows])
+        rank[rows] = sub
+        tied[rows] = sub_tied
+        cnt = tied.sum(dim=1).tolist()
+    total = sum(cnt)
+    if total > m_cap:
+        # only h_s >= nmax with ties left (exactly periodic blocks): doubling
+        # has covered every block, the ranks are final and this exits at once
+        return ops_bwt.bwt_rounds_resume(rank, torch.zeros_like(tied), h_s,
+                                         torch.zeros_like(n, dtype=torch.bool),
+                                         n)[0]
+    if total == 0:
+        return rank
+    return _sparse_refine_compact(rank, tied, n, m_cap, h_s)
+
+
+def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
+                           ns: torch.Tensor, m_cap: int, h0: int) -> torch.Tensor:
+    """Compact the tied positions of the batch (in index order, pads
+    blk == B) into an m_cap set and refine them from gap h0."""
+    b, nmax = rank.shape
+    dev = rank.device
+    flat = tied.reshape(-1)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, m_cap)
+    idx = torch.full((m_cap + 1,), b * nmax, dtype=torch.int64, device=dev)
+    idx = idx.scatter_(0, dest, torch.arange(b * nmax, device=dev))[:m_cap]
+    blk = idx // nmax
+    pos = idx - blk * nmax
+    nb = ns[blk.clamp(0, b - 1)]
+    # hm0 = h0 mod nb by bmh_tpu's binary conditional subtraction (the
+    # quotient is at most h0 <= nmax); products past nmax are masked to
+    # int32-max as there, so the ladder gives bmh_tpu's values exactly
+    hm = torch.full((m_cap,), h0, dtype=torch.int64, device=dev)
+    q = 1 << (nmax.bit_length() - 1)
+    while q >= 1:
+        prod = torch.where(nb <= nmax // q, nb * q, 2**31 - 1)
+        hm = torch.where(hm >= prod, hm - prod, hm)
+        q //= 2
+    cfg = config_mod.DEFAULT
+    return ops_bwt.sparse_refine(rank, blk, pos, hm, ns, h0,
+                                 tier1_rounds=cfg.tier1_rounds,
+                                 tier2_div=cfg.tier2_div)
+
+
+def _compress_batch(arrs, idxs, nmax: int, device, stride: int, hard: bool):
+    """Compress one batch (hard: by the full-rounds program); returns its
+    per-block result dicts."""
     b = len(idxs)
     batch = np.zeros((b, nmax), dtype=np.uint8)
     ns = np.zeros(b, dtype=np.int64)
@@ -79,7 +185,11 @@ def _compress_batch(arrs, idxs, nmax: int, device, stride: int):
         ns[row] = arrs[i].size
     data = torch.from_numpy(batch).to(device)
     n = torch.from_numpy(ns).to(device)
-    words, bits, lens, freqs, m, shift, cps, aper = compress_full_fn(data, n, stride)
+    if hard:
+        out = compress_full_fn(data, n, stride)
+    else:
+        out = compress_sparse_fn(data, n, stride, _next_pow2(b))
+    words, bits, lens, freqs, m, shift, cps, aper = out
 
     # ragged concat of each block's word-aligned payload, then ONE copy of
     # [meta | payload]: meta row = bits, nw, shift, m, aperiodic,
@@ -117,7 +227,7 @@ def _compress_batch(arrs, idxs, nmax: int, device, stride: int):
 
 
 # ---------------------------------------------------------------------------
-# Decompress (flat route)
+# Decompress
 # ---------------------------------------------------------------------------
 
 def _stage_flat_np(blocks: list[dict], idxs: list[int], chunk_bits: int):
@@ -158,45 +268,84 @@ def _stage_flat_np(blocks: list[dict], idxs: list[int], chunk_bits: int):
             maxl)
 
 
+def _tables(words, lens_all, seg_id, chunk_bits: int):
+    """Device decode tables: (wext, count_t (32, NC) int32, sym (B, A))."""
+    count_b, sym_b = ops_huf.decode_tables_device(lens_all)
+    count_t = count_b[seg_id].T.to(torch.int32).contiguous()
+    return ops_huf.words_ext(words, chunk_bits), count_t, sym_b
+
+
+def _compact_rows(data: torch.Tensor, ns: torch.Tensor,
+                  totals: torch.Tensor) -> torch.Tensor:
+    """The decoded rows compacted back to back (sum(ns) bytes), then each
+    row's decoded total as 8 little-endian bytes — so the caller's single
+    copy carries the integrity trailer."""
+    pos = torch.arange(data.shape[1], device=data.device)[None, :]
+    return torch.cat([data[pos < ns[:, None]],
+                      totals.contiguous().view(torch.uint8)])
+
+
 def decode_flat(words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns,
                 shifts, cps, nmax: int, chunk_bits: int, maxl: int,
                 stride: int) -> torch.Tensor:
-    """Fused flat gap decode + inverse MTF + cursor iBWT on device tensors.
-
-    Returns one uint8 tensor: the decoded rows compacted back to back
-    (sum(ns) bytes), then each row's decoded total as 8 little-endian
-    bytes — so the caller's single copy carries the integrity trailer."""
-    count_b, sym_b = ops_huf.decode_tables_device(lens_all)
-    count_t = count_b[seg_id].T.to(torch.int32).contiguous()
-    wext = ops_huf.words_ext(words, chunk_bits)
+    """The flat route on device tensors: fused gap decode + inverse MTF +
+    cursor iBWT.  Returns _compact_rows' byte tensor."""
+    wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
     codes, totals = ops_huf.gap_decode_rle0_flat(
         wext, count_t, seg_start, seg_start_idx, seg_id, sym_b, ms, ns,
         nmax, chunk_bits, maxl)
     last = ops_mtf.mtf_inverse(codes, ns, config_mod.DEFAULT.imtf_chunk)
     data = ops_bwt.bwt_inverse_cursors(last, shifts, cps, ns, stride)
-    pos = torch.arange(nmax, device=data.device)[None, :]
-    rows = data[pos < ns[:, None]]
-    return torch.cat([rows, totals.contiguous().view(torch.uint8)])
+    return _compact_rows(data, ns, totals)
 
 
-def _decompress_batch(blocks, idxs, nmax: int, stride: int, device, results):
+def decompress_stage2_fn(syms: torch.Tensor, m: torch.Tensor,
+                         shift: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(B, Nmax) RLE0 symbols -> original block bytes (doubling iBWT)."""
+    codes = ops_rle.rle0_decode(syms, m, n)
+    last = ops_mtf.mtf_inverse(codes, n, config_mod.DEFAULT.imtf_chunk)
+    return ops_bwt.bwt_inverse(last, shift, n)
+
+
+def decode_flat_periodic(words, lens_all, seg_start, seg_start_idx, seg_id,
+                         ms, ns, shifts, nmax: int, chunk_bits: int,
+                         maxl: int) -> torch.Tensor:
+    """The periodic route (no cursor checkpoints: the rank is no
+    bijection): gap decode to RLE0 symbols (K1, K2), their exact decoded
+    totals, then RLE0 inverse + inverse MTF (K3) + doubling iBWT.  Returns
+    _compact_rows' byte tensor."""
+    wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
+    syms = ops_huf.gap_decode_flat(wext, count_t, seg_start, seg_start_idx,
+                                   seg_id, sym_b, ms, nmax, chunk_bits, maxl)
+    totals = ops_rle.rle0_decoded_len(syms, ms)
+    return _compact_rows(decompress_stage2_fn(syms, ms, shifts, ns), ns, totals)
+
+
+def _decompress_batch(blocks, idxs, nmax: int, stride: int | None, device,
+                      results):
+    """Decode one batch by the flat route, or the periodic route when
+    stride is None; raises ValueError on a block whose decoded total is
+    not its length."""
     chunk_bits = config_mod.DEFAULT.decode_chunk_bits
     (words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts,
      maxl) = _stage_flat_np(blocks, idxs, chunk_bits)
-    kcp = max(max(nmax // stride, 1) - 1, 1)
-    cps = np.zeros((len(idxs), kcp), dtype=np.int64)
-    for row, i in enumerate(idxs):
-        bc = blocks[i].get("cps")
-        if bc is not None and len(bc) > 0:
-            cc = np.asarray(bc, dtype=np.int64)[:kcp]
-            cps[row, : cc.size] = cc
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    flat = decode_flat(put(words.view(np.int32)), put(lens_all), put(seg_start),
-                       put(seg_start_idx), put(seg_id), put(ms), put(ns),
-                       put(shifts), put(cps), nmax, chunk_bits, maxl, stride)
+    args = (put(words.view(np.int32)), put(lens_all), put(seg_start),
+            put(seg_start_idx), put(seg_id), put(ms), put(ns), put(shifts))
+    if stride is None:
+        flat = decode_flat_periodic(*args, nmax, chunk_bits, maxl)
+    else:
+        kcp = max(max(nmax // stride, 1) - 1, 1)
+        cps = np.zeros((len(idxs), kcp), dtype=np.int64)
+        for row, i in enumerate(idxs):
+            bc = blocks[i].get("cps")
+            if bc is not None and len(bc) > 0:
+                cc = np.asarray(bc, dtype=np.int64)[:kcp]
+                cps[row, : cc.size] = cc
+        flat = decode_flat(*args, put(cps), nmax, chunk_bits, maxl, stride)
     flat_np = flat.cpu().numpy()
     total = int(ns.sum())
     totals = flat_np[total:].view("<i8")
@@ -207,6 +356,28 @@ def _decompress_batch(blocks, idxs, nmax: int, stride: int, device, results):
                 f"corrupt container: block {i}'s RLE0 stream decodes to "
                 f"{int(totals[row])} bytes, expected {int(ns[row])}")
         results[i] = flat_np[offs[row]: offs[row] + ns[row]]
+
+
+def _decompress_single(blocks, idxs, nmax: int, device, results):
+    """Single-symbol blocks (no payload): the constant RLE0 stream, then the
+    inverse transforms.  api._validate_block_info has checked that it
+    decodes to the block length."""
+    b = len(idxs)
+    syms = np.zeros((b, nmax), dtype=np.int64)
+    ms = np.zeros(b, dtype=np.int64)
+    ns = np.zeros(b, dtype=np.int64)
+    shifts = np.zeros(b, dtype=np.int64)
+    for row, i in enumerate(idxs):
+        blk = blocks[i]
+        ms[row] = int(blk["rle_len"])
+        syms[row, : ms[row]] = int(np.nonzero(np.asarray(blk["present"]))[0][0])
+        ns[row] = int(blk["orig_len"])
+        shifts[row] = int(blk["shift"])
+    data = decompress_stage2_fn(*(torch.from_numpy(x).to(device)
+                                  for x in (syms, ms, shifts, ns)))
+    data_np = data.cpu().numpy()
+    for row, i in enumerate(idxs):
+        results[i] = data_np[row, : ns[row]]
 
 
 # ---------------------------------------------------------------------------
@@ -223,43 +394,51 @@ class TorchBackend:
         self.device = device
 
     def compress_blocks(self, blocks: list[np.ndarray], stride: int,
-                        bucket: int | None = None) -> list[dict]:
-        """bucket: force one padded size for every block."""
+                        bucket: int | None = None,
+                        full_rounds: bool = False) -> list[dict]:
+        """bucket: force one padded size for every block; full_rounds: run
+        the full-rounds program for every batch (the same bytes)."""
         results: list[dict | None] = [None] * len(blocks)
-        groups: dict[int, list[int]] = defaultdict(list)
+        groups: dict[tuple[int, bool], list[int]] = defaultdict(list)
         arrs = [np.asarray(b, dtype=np.uint8) for b in blocks]
         for i, blk in enumerate(arrs):
             nmax = max(bucket, _bucket(blk.size)) if bucket else _bucket(blk.size)
-            groups[nmax].append(i)
-        for nmax, all_idxs in groups.items():
+            groups[(nmax, _looks_pathological(blk))].append(i)
+        for (nmax, hard), all_idxs in groups.items():
             for idxs in _chunks(all_idxs):
-                for i, r in zip(idxs, _compress_batch(arrs, idxs, nmax,
-                                                      self.device, stride)):
+                for i, r in zip(idxs, _compress_batch(arrs, idxs, nmax, self.device,
+                                                      stride, hard or full_rounds)):
                     results[i] = r
         return results  # type: ignore[return-value]
 
     def decompress_blocks(self, blocks: list[dict],
                           bucket: int | None = None) -> list[np.ndarray]:
-        """bucket: force a uniform padded block size."""
+        """bucket: force a uniform padded block size.  Blocks are grouped
+        as bmh_tpu groups them: single-symbol; periodic (no checkpoints,
+        longer than one stride); the rest by (bucket, stride)."""
         results: list[np.ndarray | None] = [None] * len(blocks)
-        groups: dict[tuple[int, int], list[int]] = defaultdict(list)
+        fgroups: dict[tuple[int, int], list[int]] = defaultdict(list)
+        pgroups: dict[int, list[int]] = defaultdict(list)
+        sgroups: dict[int, list[int]] = defaultdict(list)
         for i, b in enumerate(blocks):
             n = int(b["orig_len"])
             stride = int(b["stride"])
+            nmax = max(bucket, _bucket(n)) if bucket else _bucket(n)
             if n == 0:
                 results[i] = np.zeros(0, dtype=np.uint8)
             elif int(np.asarray(b["present"]).sum()) == 1:
-                raise NotImplementedError(
-                    "decompress of single-symbol blocks is not ported yet "
-                    "(ROADMAP A11); bmh_tpu decodes them")
+                sgroups[nmax].append(i)
             elif b.get("cps") is None and n > stride:
-                raise NotImplementedError(
-                    "decompress of periodic blocks is not ported yet "
-                    "(ROADMAP A11); bmh_tpu decodes them")
+                pgroups[nmax].append(i)
             else:
-                nmax = max(bucket, _bucket(n)) if bucket else _bucket(n)
-                groups[(nmax, stride)].append(i)
-        for (nmax, stride), all_idxs in groups.items():
+                fgroups[(nmax, stride)].append(i)
+        for (nmax, stride), all_idxs in fgroups.items():
             for idxs in _chunks(all_idxs):
                 _decompress_batch(blocks, idxs, nmax, stride, self.device, results)
+        for nmax, all_idxs in pgroups.items():
+            for idxs in _chunks(all_idxs):
+                _decompress_batch(blocks, idxs, nmax, None, self.device, results)
+        for nmax, all_idxs in sgroups.items():
+            for idxs in _chunks(all_idxs):
+                _decompress_single(blocks, idxs, nmax, self.device, results)
         return results  # type: ignore[return-value]

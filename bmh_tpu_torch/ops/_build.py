@@ -36,6 +36,7 @@ SOURCES = {
     "gap_decode_phase_b": "gap_decode.cu",
     "imtf_chunks": "imtf.cu",
     "ibwt_walk": "ibwt_walk.cu",
+    "sort3": "sort3.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOGS: dict[str, str] = {}

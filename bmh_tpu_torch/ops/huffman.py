@@ -12,8 +12,10 @@ Port of bmh_tpu/ops/huffman.py, batched over blocks.
   from each of the 32 possible codeword-boundary offsets ("gaps"); a
   segmented scan composes the per-chunk exit-gap maps into each chunk's
   true entry gap; kernel K2 re-decodes each chunk from that gap and emits
-  canonical indices.  The RLE0 inverse is fused in: run lengths are
-  resolved in the (steps, NC) emission layout and only literals are placed.
+  canonical indices.  On the main path the RLE0 inverse is fused in: run
+  lengths are resolved in the (steps, NC) emission layout and only
+  literals are placed (`gap_decode_rle0_flat`); the periodic route takes
+  the symbols themselves (`gap_decode_flat`).
 """
 
 from __future__ import annotations
@@ -205,6 +207,32 @@ def _decode_phases(wext, count_t, seg_start, seg_start_idx, chunk_bits: int,
     entry = entry.to(torch.int32)
     idxs = decode_kernels.phase_b(wext, count_t, entry, chunk_bits, maxl)
     return idxs, out_off, entry
+
+
+def gap_decode_flat(wext: torch.Tensor, count_t: torch.Tensor,
+                    seg_start: torch.Tensor, seg_start_idx: torch.Tensor,
+                    seg_id: torch.Tensor, sym_tbl: torch.Tensor, n: torch.Tensor,
+                    nmax: int, chunk_bits: int, maxl: int = MAX_LEN) -> torch.Tensor:
+    """Gap decode over the flat chunk axis to RLE0 symbols (the periodic
+    route's front end, without the fused RLE0 inverse).
+
+    Arguments as gap_decode_rle0_flat's, with n (B,) the RLE0 symbol counts.
+    Returns (B, nmax) int64 symbols: each row's first n[b] decoded symbols
+    in place; every other position (and any the payload fails to reach)
+    holds the row's first canonical symbol, as bmh_tpu's index-0 fill."""
+    idxs, out_off, _ = _decode_phases(wext, count_t, seg_start, seg_start_idx,
+                                      chunk_bits, maxl)
+    b, a = sym_tbl.shape
+    valid = idxs >= 0
+    vi = valid.to(torch.int64)
+    within = out_off[None, :] + torch.cumsum(vi, dim=0) - vi
+    keep = valid & (within < n[seg_id][None, :]) & (within < nmax)
+    flat_cap = b * nmax
+    target = torch.where(keep, seg_id[None, :] * nmax + within, flat_cap)
+    cidx = torch.zeros(flat_cap + 1, dtype=torch.int64, device=wext.device)
+    cidx[target.reshape(-1)] = idxs.to(torch.int64).reshape(-1)
+    cidx = cidx[:flat_cap].reshape(b, nmax).clamp(0, a - 1)
+    return torch.gather(sym_tbl, 1, cidx)
 
 
 def gap_decode_rle0_flat(wext: torch.Tensor, count_t: torch.Tensor,

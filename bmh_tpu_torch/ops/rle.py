@@ -1,9 +1,11 @@
 """RLE0: zero-run coding of the MTF stream (bzip2-style RUNA/RUNB).
 
-Port of bmh_tpu/ops/rle.py's encoder.  Maximal runs of MTF code 0 become
-their length in bijective base 2 over RUNA=0 / RUNB=1 (digits LSB-first);
-every non-zero code c becomes symbol c+1, so the Huffman alphabet is 257.
-The inverse is fused into the gap decode (ops/huffman.py).
+Port of bmh_tpu/ops/rle.py.  Maximal runs of MTF code 0 become their
+length in bijective base 2 over RUNA=0 / RUNB=1 (digits LSB-first); every
+non-zero code c becomes symbol c+1, so the Huffman alphabet is 257.  The
+main decode path fuses the inverse into the gap decode (ops/huffman.py);
+`rle0_decode` / `rle0_decoded_len` serve the periodic and single-symbol
+routes.
 
 Batched: (B, Nmax) rows with per-row true lengths.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 RLE_ALPHABET = 257
+MAX_LOG = 26  # run digits past this cannot occur below the 2^21 block cap
 
 
 def _floor_log2_p1(r: torch.Tensor) -> torch.Tensor:
@@ -55,3 +58,47 @@ def rle0_encode(codes: torch.Tensor, n: torch.Tensor) -> tuple[torch.Tensor, tor
     out = torch.zeros(b, nmax + 1, dtype=torch.int64, device=dev)
     out.scatter_(1, torch.where(emit, out_idx, nmax), sym * emit)
     return out[:, :nmax], m
+
+
+def _contributions(syms: torch.Tensor, m: torch.Tensor):
+    """Per symbol, the decoded bytes it stands for: 1 for a literal,
+    (1 + digit) << j for the j-th digit of a zero run.  Returns
+    (contributions (B, N) int64, literal mask, symbols int64)."""
+    b, nmax = syms.shape
+    pos = torch.arange(nmax, device=syms.device).expand(b, nmax)
+    valid = pos < m[:, None]
+    s = syms.to(torch.int64)
+    isrun = (s <= 1) & valid
+    grp_start = isrun & ~torch.nn.functional.pad(isrun[:, :-1], (1, 0))
+    start_pos = torch.cummax(torch.where(grp_start, pos, -1), dim=1).values
+    j = (pos - start_pos).clamp(0, MAX_LOG)
+    contrib = torch.where(isrun, (1 + s) << j, valid.to(torch.int64))
+    return contrib, valid & ~isrun, s
+
+
+def rle0_decoded_len(syms: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Exact decoded length of each row's RLE0 stream (its first m[b]
+    symbols), (B,) int64.
+
+    The integrity check of the routes that decode RLE0 apart from the gap
+    decode: a container whose rle_len or payload lies decodes to a total
+    != the block length, and the caller fails closed.  bmh_tpu sums in
+    int32 and poisons a wrapped sum; here every contribution is at most
+    2 << MAX_LOG and a row has at most 2^21 symbols, so the int64 sum is
+    exact and the total itself is the signal."""
+    return _contributions(syms, m)[0].sum(dim=1)
+
+
+def rle0_decode(syms: torch.Tensor, m: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """RLE0 symbols -> MTF codes.
+
+    syms (B, Nmax) in [0, 256], first m[b] valid; n (B,) decoded lengths.
+    Returns (B, Nmax) uint8: literals placed at their decoded positions,
+    runs left as the zero fill."""
+    b, nmax = syms.shape
+    contrib, lit, s = _contributions(syms, m)
+    out_pos = torch.cumsum(contrib, dim=1) - contrib  # exclusive
+    target = torch.where(lit & (out_pos < n[:, None]), out_pos, nmax)
+    out = torch.zeros(b, nmax + 1, dtype=torch.int64, device=syms.device)
+    out.scatter_(1, target, torch.where(lit, s - 1, 0))
+    return out[:, :nmax].to(torch.uint8)

@@ -1,13 +1,19 @@
 """Where the time goes: per-stage times of one 32-block, 128 KiB batch and a
 device-time profile of the whole 9 MiB smoke stream, on one CUDA card.
 
+The compress table holds both BWT programs (full rounds; the sparse/
+adaptive program's rounds to the handoff gap and its whole rank
+computation) and is taken twice, the second time with BMH_PALLAS_SORT on
+(the BWT sorts through kernel K5).
+
     python -m bmh_tpu_torch.tools.profile_stages [--seed 0] [--out PATH]
 
 Stage times are host-clock medians of 5 warm runs, each stage ended by
 torch.cuda.synchronize().  The profile (torch.profiler, CPU + CUDA) runs
-one warm compress_bytes and one decompress_bytes of the stream and reports
-wall time, summed device kernel time, the idle share 1 - device/wall, and
-the kernels with the most device time.  Prints one JSON object per section and,
+one warm compress_bytes and one decompress_bytes of the stream, and the
+backend's compress of its blocks by each BWT program, and reports wall
+time, summed device kernel time, the idle share 1 - device/wall, and the
+kernels with the most device time.  Prints one JSON object per section and,
 with --out, also writes them all to that file.
 """
 
@@ -46,15 +52,26 @@ def _timed(fn, reps=5):
 
 
 def compress_stages(blocks, dev) -> dict:
+    """Stage times of one batch: the BWT of both programs, then the shared
+    tail, then the whole batch by each program."""
     cfg = config.DEFAULT
     batch = np.zeros((len(blocks), BLOCK), np.uint8)
     for i, b in enumerate(blocks):
         batch[i, : b.size] = b
     data = torch.from_numpy(batch).to(dev)
     n = torch.tensor([b.size for b in blocks], device=dev)
+    b_pad = pipeline._next_pow2(len(blocks))
+    h_stop = 1 << (cfg.full_rounds + 1)
     ms = {}
-    (last, _, _, _), ms["bwt_forward_cp"] = _timed(
-        lambda: bwt.bwt_forward_cp(data, n, cfg.cursor_stride))
+    # full-rounds program's BWT, then the sparse/adaptive program's
+    _, ms["bwt_rounds_full"] = _timed(lambda: bwt.bwt_rounds(data, n))
+    (_, tied, _, _), ms[f"bwt_rounds_to_h{h_stop}"] = _timed(
+        lambda: bwt.bwt_rounds(data, n, h_stop))
+    ms["tied_at_handoff"] = int(tied.sum())
+    ms["sparse_cap"] = pipeline._sparse_cap(b_pad, BLOCK)
+    rank_s, ms["sparse_ranks"] = _timed(lambda: pipeline.sparse_ranks(data, n, b_pad))
+    (last, _, _, _), ms["bwt_finish_cp"] = _timed(
+        lambda: bwt.bwt_finish_cp(data, n, rank_s, cfg.cursor_stride))
     codes, ms["mtf_forward"] = _timed(lambda: mtf.mtf_forward(last, n, cfg.mtf_chunk))
     (syms, m), ms["rle0_encode"] = _timed(lambda: rle.rle0_encode(codes, n))
     freqs, ms["histogram"] = _timed(lambda: huffman.histogram(syms, m, rle.RLE_ALPHABET))
@@ -63,8 +80,9 @@ def compress_stages(blocks, dev) -> dict:
         lambda: huffman.canonical_codes_device(lens))
     _, ms["encode_bitpack"] = _timed(lambda: huffman.encode_bitpack(syms, m, lens, canon))
     arrs = list(blocks)
-    _, ms["whole_batch"] = _timed(lambda: pipeline._compress_batch(
-        arrs, list(range(len(arrs))), BLOCK, dev, cfg.cursor_stride))
+    for label, hard in (("sparse", False), ("full", True)):
+        _, ms[f"whole_batch_{label}"] = _timed(lambda: pipeline._compress_batch(
+            arrs, list(range(len(arrs))), BLOCK, dev, cfg.cursor_stride, hard))
     return ms
 
 
@@ -108,6 +126,16 @@ def decompress_stages(blob: bytes, dev) -> dict:
     return ms
 
 
+def with_sort_kernel(fn):
+    """fn() with BMH_PALLAS_SORT on: every BWT sort inside K5's envelope
+    runs the kernel."""
+    config.DEFAULT.pallas_sort = True
+    try:
+        return fn()
+    finally:
+        config.DEFAULT.pallas_sort = False
+
+
 def profile(fn, label: str) -> dict:
     fn()
     torch.cuda.synchronize()
@@ -131,6 +159,22 @@ def profile(fn, label: str) -> dict:
     }
 
 
+def program_profiles(arr: np.ndarray, dev) -> list[dict]:
+    """Device time and idle share of the backend's compress of the whole
+    stream's RLE1'd blocks by each BWT program, and by the sparse program
+    with BMH_PALLAS_SORT on."""
+    blocks, _ = api._rle1_blocks([arr[i:i + BLOCK] for i in range(0, arr.size, BLOCK)])
+    be = pipeline.TorchBackend(dev)
+    stride = config.DEFAULT.cursor_stride
+    return [
+        profile(lambda: be.compress_blocks(blocks, stride), "backend_sparse_9MiB"),
+        profile(lambda: be.compress_blocks(blocks, stride, full_rounds=True),
+                "backend_full_rounds_9MiB"),
+        with_sort_kernel(lambda: profile(lambda: be.compress_blocks(blocks, stride),
+                                         "backend_sparse_pallas_sort_9MiB")),
+    ]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -151,11 +195,14 @@ def main() -> None:
         {"section": "card", "card": card, "torch": torch.__version__,
          "cuda": torch.version.cuda},
         {"section": "compress_stages_ms_32x128KiB_text", **compress_stages(blocks, dev)},
+        {"section": "compress_stages_ms_32x128KiB_text_pallas_sort",
+         **with_sort_kernel(lambda: compress_stages(blocks, dev))},
         {"section": "decompress_stages_ms_32x128KiB_text",
          **decompress_stages(blob_head, dev)},
         profile(lambda: api.compress_bytes(data, block_size=BLOCK, device=dev),
                 "compress_9MiB"),
         profile(lambda: api.decompress_bytes(blob, device=dev), "decompress_9MiB"),
+        *program_profiles(arr, dev),
     ]
     for s in sections:
         print(json.dumps(s))

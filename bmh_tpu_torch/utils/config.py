@@ -3,9 +3,13 @@ BMH_* environment knobs, so one environment configures both packages.
 
 The port reads the knobs at call time and keeps no compiled-program cache;
 the kernel build cache (ops/_build.py) keys on source and flags only.
-Knobs that select TPU-only machinery (pallas_*, full_rounds, tier*,
-sparse_cap_div, lf2, devices, inflight, decode_place) are accepted and
-validated but not read by this slice.
+`pallas_sort` (BMH_PALLAS_SORT, off by default as in bmh_tpu) sends every
+BWT sort inside its envelope through kernel K5 (ops/bwt._stable_sort3);
+full_rounds, tier1_rounds, tier2_div and sparse_cap_div shape the
+sparse/adaptive compress program as in bmh_tpu.  The other TPU knobs
+(pallas_decode, pallas_imtf, lf2, devices, inflight, decode_place) are
+accepted and validated but not read: the decode kernels always run on a
+card, and the rest select machinery the port does not have yet.
 """
 
 from __future__ import annotations

@@ -6,13 +6,23 @@
 Phases, each of which raises (non-zero exit) on any mismatch:
   1. card     no CUDA device -> exit 2 before any result is printed
   2. build    nvcc every kernel source in parallel; print -Xptxas -v
-  3. kernels  capture each kernel's inputs from a real 32-block, 128 KiB
-              decode batch; kernel vs plain PyTorch version, exact
+  3. kernels  capture K1-K4's inputs from a real 32-block, 128 KiB decode
+              batch and K5's from a real compress of the same batch with
+              BMH_PALLAS_SORT on (first doubling round, (32, 131072));
+              kernel vs plain PyTorch version, exact; K5 also timed at the
+              sparse tier-1 shape and against torch.sort (library_ms)
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
-     trip     decompress at 128 KiB on the card: bit-exact, container
+     trip     decompress at 128 KiB on the card, once with default knobs
+              and once with BMH_PALLAS_SORT on: bit-exact, container
               SHA-256 equal to bmh_tpu's (tests/data/torch_golden.json),
-              every kernel launched by the main path; MB/s and peak memory
-  5. hostile  a CRC-valid container with a lying rle_len raises ValueError
+              every kernel launched by the union of the two runs; MB/s of
+              both runs, and compress MB/s of the sparse/adaptive against
+              the full-rounds program; peak memory
+  5. routes   a 512 KiB tiled random 1024-byte motif (pathological batch,
+              periodic blocks) and b"\x00" * 3 (single symbol) round-trip
+              on the card, containers equal to the CPU run's
+  6. hostile  CRC-valid containers with a lying rle_len (a flat-route and
+              a periodic-route block) raise ValueError
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -28,6 +38,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -96,11 +107,72 @@ def capture_kernel_inputs(bt, blob: bytes) -> dict:
     return captured
 
 
-def kernel_phase(bt, blob: bytes) -> list[dict]:
+def capture_sort_inputs(bt, data: bytes) -> dict:
+    """Compress `data` once with BMH_PALLAS_SORT on, recording (cloned) the
+    first K5 call of each shape: (32, 131072) is the first doubling round,
+    (1, 262144) the sparse tier-1 set."""
+    from bmh_tpu_torch.ops import sort_kernel
+    from bmh_tpu_torch.utils import config
+
+    captured: dict = {}
+    orig = sort_kernel.sort3
+
+    def rec(*args):
+        captured.setdefault(tuple(args[0].shape), [a.clone() for a in args])
+        return orig(*args)
+
+    config.DEFAULT.pallas_sort = True
+    sort_kernel.sort3 = rec
+    try:
+        bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+    finally:
+        sort_kernel.sort3 = orig
+        config.DEFAULT.pallas_sort = False
+    torch.cuda.synchronize()
+    return captured
+
+
+def sort_library(k1, k2, idx):
+    """What one library sort takes for K5's function: the packed int64
+    (k1, k2) key, torch.sort(stable=True), and the gather of idx."""
+    key = (k1.to(torch.int64) << 32) + (k2.to(torch.int64) + 2**31)
+    ks, order = torch.sort(key, dim=-1, stable=True)
+    return ks, torch.gather(idx, -1, order)
+
+
+def sort_bound(k1) -> tuple[int, int]:
+    """K5's least work on these inputs: bytes = 12 read + 12 written per
+    triple; operations = a comparison sort's B * N * log2(N) comparisons of
+    three int32 keys each."""
+    b, n = k1.shape
+    return 24 * b * n, 3 * b * n * (n.bit_length() - 1)
+
+
+def kernel_phase(bt, blob: bytes, head: bytes) -> list[dict]:
     from bmh_tpu_torch.ops import decode_kernels as dk
-    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
+    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
 
     cap = capture_kernel_inputs(bt, blob)
+    sorts = capture_sort_inputs(bt, head)
+    require((32, BLOCK) in sorts, f"no (32, {BLOCK}) K5 call captured: "
+                                  f"{sorted(sorts)}")
+    k5 = sorts[(32, BLOCK)]
+    tier1 = sorts.get((1, 2 * BLOCK))
+    if tier1 is None:
+        # this batch's ties fit no sparse set: time K5 on a random row
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tier1 = [torch.randint(0, 1 << 17, (1, 2 * BLOCK), generator=g,
+                               device="cuda", dtype=torch.int32),
+                 torch.randint(0, 1 << 17, (1, 2 * BLOCK), generator=g,
+                               device="cuda", dtype=torch.int32),
+                 torch.arange(2 * BLOCK, device="cuda",
+                              dtype=torch.int32)[None]]
+    t_ms = cuda_ms(lambda: sort_kernel.sort3(*tier1), 20)
+    t_lib = cuda_ms(lambda: sort_library(*tier1), 20)
+    print(f"[kernels] sort3 at the sparse tier-1 shape {list(tier1[0].shape)}"
+          f" ({'captured' if (1, 2 * BLOCK) in sorts else 'random'}): "
+          f"ms={t_ms:.4f} library_ms={t_lib:.4f} bound_ms="
+          f"{sort_bound(tier1[0])[0] / PEAK_BYTES_PER_S * 1e3:.4f}", flush=True)
     wext, count_t, chunk_bits, maxl = cap["phase_a"]
     wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
     (codes_tm,) = cap["imtf_chunks"]
@@ -142,6 +214,14 @@ def kernel_phase(bt, blob: bytes) -> list[dict]:
         plain=lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps),
         bytes=nbytes(table, starts) + b * kc * steps, ops=3 * b * kc * steps,
         reps=20))
+    k5_bytes, k5_ops = sort_bound(k5[0])
+    cases.append(dict(
+        name="sort3", source="bmh_tpu_torch/csrc/sort3.cu",
+        replaces="bmh_tpu/ops/pallas_sort.py:149",
+        kernel=lambda: sort_kernel.sort3(*k5),
+        plain=lambda: sort_kernel.sort3_plain(*k5),
+        library=lambda: sort_library(*k5),
+        bytes=k5_bytes, ops=k5_ops, reps=10, shapes=[list(t.shape) for t in k5]))
 
     rows = []
     for c in cases:
@@ -154,6 +234,7 @@ def kernel_phase(bt, blob: bytes) -> list[dict]:
                   if g.numel() else 0.0 for g, w in zip(got, want))
         ms = cuda_ms(c["kernel"], c["reps"])
         plain_ms = cuda_ms(c["plain"], 1)
+        library_ms = cuda_ms(c["library"], c["reps"]) if "library" in c else None
         t_bytes = c["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = c["ops"] / PEAK_OPS_PER_S * 1e3
         rows.append({
@@ -161,15 +242,44 @@ def kernel_phase(bt, blob: bytes) -> list[dict]:
             "replaces": c["replaces"], "equal": equal, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "shapes": [list(t.shape) for t in cap[c["name"].replace(
-                "gap_decode_", "")] if torch.is_tensor(t)],
+            "library_ms": library_ms,
+            "shapes": c.get("shapes") or [
+                list(t.shape) for t in cap[c["name"].replace("gap_decode_", "")]
+                if torch.is_tensor(t)],
         })
         print(f"[kernels] {c['name']}: equal={equal} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.2f}", flush=True)
+              f"plain_ms={plain_ms:.2f} library_ms={library_ms}", flush=True)
         require(equal, f"{c['name']} disagrees with its plain version "
                        f"(max abs err {err})")
     return rows
+
+
+def program_rates(bt, data: bytes, card: str) -> None:
+    """Compress MB/s of the sparse/adaptive and the full-rounds program on
+    the stream's RLE1'd blocks, through the pipeline's backend, in turns
+    (sparse, full, full, sparse) three times; both must write the same
+    blocks."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.utils import config
+
+    arr = np.frombuffer(data, np.uint8)
+    blocks, _ = bt.api._rle1_blocks([arr[i:i + BLOCK] for i in range(0, arr.size, BLOCK)])
+    be = pipeline.TorchBackend(torch.device("cuda"))
+    stride = config.DEFAULT.cursor_stride
+    times: dict = {False: [], True: []}
+    outs = {}
+    for full in (False, True, True, False) * 3:
+        t = time.perf_counter()
+        outs[full] = be.compress_blocks(blocks, stride, full_rounds=full)
+        torch.cuda.synchronize()
+        times[full].append(time.perf_counter() - t)
+    require(all(a["payload"] == b["payload"] for a, b in zip(outs[False], outs[True])),
+            "the sparse and full-rounds programs wrote different blocks")
+    mb = len(data) / 1e6
+    print(f"[programs] {card}: compress MB/s of the backend on the stream's "
+          f"blocks, median of 6: sparse/adaptive "
+          f"{mb / statistics.median(times[False]):.3f}, full rounds "
+          f"{mb / statistics.median(times[True]):.3f}; runs {times}", flush=True)
 
 
 def mutate_rle_len(blob: bytes, delta: int) -> bytes:
@@ -222,55 +332,96 @@ def main() -> None:
         require(in_sha == golden["input_sha256"],
                 "input stream differs from the one the golden digest was made from")
 
-    # 3. kernels, at the shapes of one real 32-block decode batch
+    # 3. kernels, at the shapes of one real 32-block batch
     head = bt.compress_bytes(data[: 32 * BLOCK], block_size=BLOCK, device="cuda")
-    kernels = kernel_phase(bt, head)
+    kernels = kernel_phase(bt, head, data[: 32 * BLOCK])
 
-    # 4. round trip: counts set to 0 just before the main path, read after
-    _build.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    blob = bt.compress_bytes(data, block_size=BLOCK, device="cuda")
-    out = bt.decompress_bytes(blob, device="cuda")
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    require(out == data, "round trip is not bit-exact")
-    blob_sha = hashlib.sha256(blob).hexdigest()
-    print(f"[roundtrip] {len(data)} -> {len(blob)} bytes, sha256 {blob_sha}, "
-          f"launches {launches}", flush=True)
-    if check_golden:
-        require(blob_sha == golden["container_sha256"]
-                and len(blob) == golden["container_bytes"],
-                "container differs from bmh_tpu's recorded one")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the main path: {launches}")
+    # 4. round trip, default knobs and BMH_PALLAS_SORT on: counts set to 0
+    #    just before each run of the main path, read just after
+    from bmh_tpu_torch.utils import config
+
+    runs = {}
+    for label, sort3 in (("default", False), ("pallas_sort", True)):
+        config.DEFAULT.pallas_sort = sort3
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        blob = bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+        out = bt.decompress_bytes(blob, device="cuda")
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        config.DEFAULT.pallas_sort = False
+        require(out == data, f"{label} round trip is not bit-exact")
+        blob_sha = hashlib.sha256(blob).hexdigest()
+        print(f"[roundtrip] {label}: {len(data)} -> {len(blob)} bytes, sha256 "
+              f"{blob_sha}, max_memory_allocated {peak} B, launches {launches}",
+              flush=True)
+        if check_golden:
+            require(blob_sha == golden["container_sha256"]
+                    and len(blob) == golden["container_bytes"],
+                    f"{label} container differs from bmh_tpu's recorded one")
+        runs[label] = launches
+    union = {k: sum(r[k] for r in runs.values()) for k in runs["default"]}
+    require(all(v > 0 for v in union.values()),
+            f"a kernel was not launched on the main path: {union}")
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = union[row["name"]]
+        row["launches_by_run"] = {label: r[row["name"]] for label, r in runs.items()}
 
-    c_times, d_times = [], []
-    for _ in range(3):
-        t = time.perf_counter()
-        bt.compress_bytes(data, block_size=BLOCK, device="cuda")
-        c_times.append(time.perf_counter() - t)
-        t = time.perf_counter()
-        bt.decompress_bytes(blob, device="cuda")
-        d_times.append(time.perf_counter() - t)
     mb = len(data) / 1e6
-    print(f"[roundtrip] {card}: compressed {len(blob)} B "
-          f"(ratio {len(blob) / len(data):.4f}), compress "
-          f"{mb / statistics.median(c_times):.3f} MB/s, decompress "
-          f"{mb / statistics.median(d_times):.3f} MB/s (median of 3 warm), "
-          f"max_memory_allocated {peak} B; runs c={c_times} d={d_times}",
-          flush=True)
+    for label, sort3 in (("default", False), ("pallas_sort", True)):
+        config.DEFAULT.pallas_sort = sort3
+        c_times, d_times = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+            c_times.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            bt.decompress_bytes(blob, device="cuda")
+            d_times.append(time.perf_counter() - t)
+        config.DEFAULT.pallas_sort = False
+        print(f"[roundtrip] {label} {card}: compressed {len(blob)} B "
+              f"(ratio {len(blob) / len(data):.4f}), compress "
+              f"{mb / statistics.median(c_times):.3f} MB/s, decompress "
+              f"{mb / statistics.median(d_times):.3f} MB/s (median of 3 warm); "
+              f"runs c={c_times} d={d_times}", flush=True)
+    program_rates(bt, data, card)
 
-    # 5. hostile: a lying rle_len must fail closed on the card
+    # 5. routes: pathological + periodic blocks, and a single-symbol block
+    rng = np.random.default_rng(args.seed)
+    motif = bytes(rng.integers(0, 256, 1024, dtype=np.uint8))
+    periodic = motif * 512
+    route_blobs = {}
+    for label, stream, bs in (("periodic", periodic, BLOCK),
+                              ("single-symbol", b"\x00" * 3, 2048)):
+        route_blobs[label] = blob_r = bt.compress_bytes(stream, block_size=bs,
+                                                        device="cuda")
+        require(blob_r == bt.compress_bytes(stream, block_size=bs, device="cpu"),
+                f"{label} container differs from the CPU run's")
+        require(bt.decompress_bytes(blob_r, device="cuda") == stream,
+                f"{label} round trip is not bit-exact")
+        print(f"[routes] {label}: {len(stream)} -> {len(blob_r)} bytes, equal "
+              f"to the CPU container, round trip bit-exact", flush=True)
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.utils import container as C
+
+    raws = C.unpack_file(route_blobs["periodic"])[2]
+    require(all(C.unpack_block(r)[4] is None for r in raws)
+            and pipeline._looks_pathological(np.frombuffer(periodic[:BLOCK], np.uint8)),
+            "the motif stream did not take the pathological and periodic routes")
+
+    # 6. hostile: a lying rle_len must fail closed on the card, on the flat
+    #    and on the periodic route
     small = bt.compress_bytes(data[:12000], block_size=16384, device="cuda")
-    bad = mutate_rle_len(small, -3)
-    try:
-        bt.decompress_bytes(bad, device="cuda")
-    except ValueError as e:
-        print(f"[hostile] lying rle_len rejected: {e}", flush=True)
-    else:
-        raise SystemExit("chip_smoke FAILED: lying rle_len container decoded")
+    period = bt.compress_bytes(periodic[:2 * BLOCK], block_size=BLOCK, device="cuda")
+    for label, bad in (("flat", mutate_rle_len(small, -3)),
+                       ("periodic", mutate_rle_len(period, -2))):
+        try:
+            bt.decompress_bytes(bad, device="cuda")
+        except ValueError as e:
+            print(f"[hostile] {label}: lying rle_len rejected: {e}", flush=True)
+        else:
+            raise SystemExit(f"chip_smoke FAILED: {label} lying rle_len "
+                             "container decoded")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-"""The port's slice end to end on the CPU: bmh_tpu_torch.compress_bytes
-writes the same bytes as bmh_tpu.compress_bytes, the two packages decode
-each other's containers, and the routes outside this slice raise."""
+"""The port end to end on the CPU: bmh_tpu_torch.compress_bytes writes the
+same bytes as bmh_tpu.compress_bytes under both sort routes and both
+compress programs, and the two packages decode each other's containers on
+every decompress route (flat, periodic, single-symbol)."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,8 @@ import torch
 
 import bmh_tpu
 import bmh_tpu_torch as bt
+from bmh_tpu_torch.models import pipeline as tpipe
+from bmh_tpu_torch.utils import config as tconfig
 from bmh_tpu_torch.utils import container as tcont
 
 
@@ -62,15 +65,71 @@ def test_many_uniform_and_files(tmp_path):
 
 
 def test_out_of_slice_routes_raise():
-    single = bt.compress_bytes(b"\x00" * 3, block_size=2048, device="cpu")
-    assert single == bmh_tpu.compress_bytes(b"\x00" * 3, block_size=2048)
-    with pytest.raises(NotImplementedError, match="single-symbol.*ROADMAP"):
-        bt.decompress_bytes(single, device="cpu")
-    periodic = bt.compress_bytes(b"xyz" * 2000, block_size=8192, device="cpu")
-    assert periodic == bmh_tpu.compress_bytes(b"xyz" * 2000, block_size=8192)
-    assert tcont.unpack_block(tcont.unpack_file(periodic)[2][0])[4] is None
-    with pytest.raises(NotImplementedError, match="periodic.*ROADMAP"):
-        bt.decompress_bytes(periodic, device="cpu")
+    """The single-symbol and periodic routes (once outside the port, now
+    ported): bmh_tpu's containers decode through them, and the port writes
+    the same containers."""
+    refs = {}
+    for data, bs in ((b"\x00" * 3, 2048), (b"\x05", 2048), (b"xyz" * 2000, 8192),
+                     (b"xyz" * 700, 2100)):
+        refs[data] = ref = bmh_tpu.compress_bytes(data, block_size=bs)
+        assert bt.compress_bytes(data, block_size=bs, device="cpu") == ref
+        assert bt.decompress_bytes(ref, device="cpu") == data
+    for data in (b"\x00" * 3, b"\x05"):  # one present symbol, no payload
+        fields = tcont.unpack_block(tcont.unpack_file(refs[data])[2][0])
+        assert int(fields[3].sum()) == 1 and fields[6] == b""
+    fields = tcont.unpack_block(tcont.unpack_file(refs[b"xyz" * 2000])[2][0])
+    assert fields[4] is None and fields[7] > 4096  # the periodic route
+
+
+def _streams():
+    rng = np.random.default_rng(11)
+    text = INPUTS["text"][0]
+    motif = bytes(rng.integers(0, 256, 1024, dtype=np.uint8))
+    return {
+        "text": (text[:30000], 8192),
+        "random": INPUTS["random"],
+        # exactly periodic blocks, longer than one checkpoint stride and
+        # shorter than the pathological test's 8192-byte floor: the sparse
+        # program's resume branch, the periodic decode route
+        "periodic": (b"abcdef" * 4000, 6000),
+        # run-dominated blocks (the full-rounds batch) beside text ones
+        "pathological": (motif * 16 + text[:9000], 8192),
+    }
+
+
+STREAMS = _streams()
+_REFS: dict = {}
+
+
+@pytest.mark.parametrize("sort3", [False, True], ids=["torch_sort", "sort3"])
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_compress_matches_bmh_tpu_both_sort_routes(monkeypatch, name, sort3):
+    """BMH_PALLAS_SORT routes every BWT sort of both programs through K5's
+    plain version here; the containers stay bmh_tpu's byte for byte."""
+    data, bs = STREAMS[name]
+    if name not in _REFS:
+        _REFS[name] = bmh_tpu.compress_bytes(data, block_size=bs)
+    monkeypatch.setattr(tconfig.DEFAULT, "pallas_sort", sort3)
+    arrs = [np.frombuffer(data[i:i + bs], np.uint8) for i in range(0, len(data), bs)]
+    hard = [tpipe._looks_pathological(a) for a in arrs]
+    assert any(hard) == (name == "pathological") and not all(hard)
+    got = bt.compress_bytes(data, block_size=bs, device="cpu")
+    assert got == _REFS[name]
+    if name == "periodic":
+        assert all(tcont.unpack_block(r)[4] is None for r in tcont.unpack_file(got)[2])
+    assert bt.decompress_bytes(got, device="cpu") == data
+
+
+def test_full_rounds_program_writes_the_same_blocks():
+    """Forcing the full-rounds program on every batch changes no byte."""
+    data, bs = STREAMS["text"]
+    blocks = [np.frombuffer(data[i:i + bs], np.uint8) for i in range(0, len(data), bs)]
+    be = tpipe.TorchBackend(torch.device("cpu"))
+    sparse = be.compress_blocks(blocks, 4096)
+    full = be.compress_blocks(blocks, 4096, full_rounds=True)
+    for a, b in zip(sparse, full):
+        assert a["payload"] == b["payload"] and a["shift"] == b["shift"]
+        np.testing.assert_array_equal(a["cps"], b["cps"])
 
 
 def test_default_device_is_cuda():

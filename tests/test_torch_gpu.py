@@ -15,7 +15,8 @@ import bmh_tpu_torch as bt
 from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.ops import decode_kernels as dk
 from bmh_tpu_torch.ops import huffman as thuf
-from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
+from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
+from bmh_tpu_torch.utils import config
 
 pytestmark = pytest.mark.gpu
 
@@ -41,7 +42,9 @@ def test_roundtrip_matches_cpu(cuda):
     assert blob == bt.compress_bytes(data, block_size=65536, device="cpu")
     assert bt.decompress_bytes(blob, device=cuda) == data
     assert bt.decompress_bytes(blob) == data  # the default device is the card
-    assert all(v > 0 for v in _build.LAUNCHES.values())
+    # with BMH_PALLAS_SORT off (the default) K5 stays idle
+    assert _build.LAUNCHES["sort3"] == 0
+    assert all(v > 0 for k, v in _build.LAUNCHES.items() if k != "sort3")
 
 
 def test_gap_decode_kernels_match_plain(cuda):
@@ -82,9 +85,54 @@ def test_ibwt_kernel_matches_plain(cuda):
                        ibwt_kernel.ibwt_walk_plain(table, starts, nmax // k))
 
 
+@pytest.mark.parametrize("b,n", [(3, 1024), (32, 1 << 17), (1, 1 << 18)])
+def test_sort3_kernel_matches_plain(cuda, b, n):
+    """K5 at its envelope's floor, the 32-block doubling-round shape and
+    the sparse tier-1 shape; many ties, keys at both int32 extremes."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    k1 = torch.randint(0, max(4, n // 64), (b, n), generator=g, dtype=torch.int32)
+    k2 = torch.randint(0, 8, (b, n), generator=g, dtype=torch.int32)
+    k1[:, ::7] = -(2**31)
+    k2[:, 3::11] = 2**31 - 1
+    idx = torch.stack([torch.randperm(n, generator=g) for _ in range(b)]).to(torch.int32)
+    args = [x.to(cuda) for x in (k1, k2, idx)]
+    got, want = sort_kernel.sort3(*args), sort_kernel.sort3_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    key = (got[0].long() << 32) + (got[1].long() + 2**31)
+    assert bool((key[:, 1:] >= key[:, :-1]).all())
+
+
+def test_roundtrip_with_sort_kernel(cuda, monkeypatch):
+    """BMH_PALLAS_SORT on: every BWT sort inside K5's envelope launches it,
+    and the container equals the CPU run's."""
+    monkeypatch.setattr(config.DEFAULT, "pallas_sort", True)
+    data = _text(200000, 5)
+    _build.reset_launches()
+    blob = bt.compress_bytes(data, block_size=65536, device=cuda)
+    assert _build.LAUNCHES["sort3"] > 0
+    assert blob == bt.compress_bytes(data, block_size=65536, device="cpu")
+    assert bt.decompress_bytes(blob, device=cuda) == data
+
+
+def test_periodic_and_single_symbol_roundtrip(cuda):
+    rng = np.random.default_rng(6)
+    motif = bytes(rng.integers(0, 256, 1024, dtype=np.uint8))
+    for data, bs in ((motif * 96, 1 << 17), (b"abcdef" * 4000, 6000),
+                     (b"\x00" * 3, 2048)):
+        blob = bt.compress_bytes(data, block_size=bs, device=cuda)
+        assert blob == bt.compress_bytes(data, block_size=bs, device="cpu")
+        assert bt.decompress_bytes(blob, device=cuda) == data
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         imtf_kernel.imtf_chunks(torch.zeros((4, 4), dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         ibwt_kernel.ibwt_walk(torch.zeros((2, 8), dtype=torch.int32, device=cuda),
                               torch.zeros((3, 1), dtype=torch.int32, device=cuda), 8)
+    bad = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sort_kernel.sort3(bad, bad, bad[:, ::2].contiguous())
+    with pytest.raises(ValueError):
+        sort_kernel.sort3(*(torch.zeros((2, 2048), dtype=torch.int32, device=cuda)[:, ::2]
+                            for _ in range(3)))

@@ -1,10 +1,11 @@
 """Hostile containers through the port: CRC-valid .bzt files with
 internally inconsistent fields fail closed with ValueError.
 
-The flat-route cases of tests/test_hostile.py, run through bmh_tpu_torch
-on the CPU.  Two defence layers: host-side cross-field validation
-(api._validate_block_info) and the decoded totals the device returns with
-the decoded bytes (models/pipeline.decode_flat)."""
+The cases of tests/test_hostile.py on the flat, periodic and single-symbol
+routes, run through bmh_tpu_torch on the CPU.  Two defence layers:
+host-side cross-field validation (api._validate_block_info) and the
+decoded totals the device returns with the decoded bytes
+(models/pipeline.decode_flat and decode_flat_periodic)."""
 
 import numpy as np
 import pytest
@@ -185,3 +186,27 @@ def test_fused_decode_totals_wrap_aliasing_container():
     blob = container.pack_file([raw], 4096, n, stride=4096)
     with pytest.raises(ValueError, match="corrupt"):
         _decode(blob)
+
+
+@pytest.mark.parametrize("data,bs", [(b"xyz" * 700, 2100), (b"xyz" * 2000, 8192)],
+                         ids=["one_stride", "periodic_route"])
+def test_periodic_block_lying_rle_len(data, bs):
+    """A block without checkpoints: within one stride it takes the flat
+    route, longer the periodic route, whose decoded totals come back the
+    same way."""
+    blob = bt.compress_bytes(data, block_size=bs, device="cpu")
+    assert _decode(blob) == data
+    f = _fields(blob)
+    assert f[4] is None and (f[7] > 4096) == (bs > 4096)
+    assert f[5] > 3
+    with pytest.raises(ValueError, match="corrupt"):
+        _decode(_mutate_block(blob, rle_len=f[5] - 2))
+
+
+def test_single_symbol_lying_rle_len():
+    """Single-symbol blocks carry no payload; the host-side closed-form
+    check catches a lying rle_len."""
+    blob = bt.compress_bytes(b"\x00" * 3, block_size=2048, device="cpu")
+    assert _decode(blob) == b"\x00" * 3
+    with pytest.raises(ValueError, match="single-symbol|corrupt"):
+        _decode(_mutate_block(blob, rle_len=_fields(blob)[5] + 1))

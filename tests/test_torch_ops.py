@@ -178,6 +178,79 @@ def test_gap_decode_rle0_flat_matches_jax():
     np.testing.assert_array_equal(tot.numpy(), [r.size for r in raw])
 
 
+def test_rle0_decode_and_decoded_len_match_jax(rows):
+    """The periodic and single-symbol routes' RLE0 inverse: codes and exact
+    totals equal bmh_tpu's; a lying symbol count, and a run stream far
+    longer than the block, give a total != n in both packages."""
+    batch, ns = rows
+    n = torch.from_numpy(ns)
+    codes = tmtf.mtf_forward(torch.from_numpy(batch), n, 128)
+    syms, m = trle.rle0_encode(codes, n)
+    hostile = torch.ones((1, NMAX), dtype=torch.int64)  # 60 x RUNB
+    syms = torch.cat([syms, hostile])
+    m = torch.cat([m, torch.tensor([60])])
+    n = torch.cat([n, torch.tensor([3000])])
+    got = trle.rle0_decode(syms, m, n)
+    tot = trle.rle0_decoded_len(syms, m)
+    lying = trle.rle0_decoded_len(syms, m - 1)
+    np.testing.assert_array_equal(got[:-1].numpy(), codes.numpy())
+    np.testing.assert_array_equal(tot[:-1].numpy(), ns)
+    fd, fl = jax.jit(jrle.rle0_decode), jax.jit(jrle.rle0_decoded_len)
+    for i in range(n.numel()):
+        js, jm, jn = jnp.asarray(syms[i].numpy(), jnp.int32), jnp.int32(m[i]), jnp.int32(n[i])
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(fd(js, jm, jn)))
+        if i < len(ns):
+            assert int(tot[i]) == int(fl(js, jm, jn))
+            failing = (lying[i], fl(js, jm - 1, jn))
+        else:
+            failing = (tot[i], fl(js, jm, jn))
+        assert all(int(x) != int(n[i]) for x in failing)
+
+
+def test_gap_decode_flat_matches_jax():
+    """The periodic route's gap decode to RLE0 symbols, and their RLE0
+    inverse against the fused main-path decode."""
+    _, blocks = _jax_blocks(np.random.default_rng(6))
+    idxs = list(range(len(blocks)))
+    nmax = 4096
+    chunk_bits = 512
+    (words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, _shifts, nc,
+     maxl, b_pad) = jpipe._stage_flat_np(blocks, idxs)
+    count_b, sym_b = jax.vmap(jhuf.decode_tables_device)(jnp.asarray(lens_all))
+    want = jax.jit(jhuf.gap_decode_flat, static_argnums=(7, 8, 9))(
+        jnp.asarray(words), count_b[jnp.asarray(seg_id)].T, jnp.asarray(seg_start),
+        jnp.asarray(seg_start_idx), jnp.asarray(seg_id), sym_b, jnp.asarray(ms),
+        nmax, chunk_bits, maxl)
+
+    (tw, tl, tss, tssi, tsid, tms, tns, _, tmaxl) = (
+        torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        for x in tpipe._stage_flat_np(blocks, idxs, chunk_bits))
+    wext, count_t, tsym = tpipe._tables(tw.view(torch.int32), tl, tsid, chunk_bits)
+    got = thuf.gap_decode_flat(wext, count_t, tss, tssi, tsid, tsym, tms, nmax,
+                               chunk_bits, tmaxl)
+    b = len(idxs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:b])
+    fused, _ = thuf.gap_decode_rle0_flat(wext, count_t, tss, tssi, tsid, tsym,
+                                         tms, tns, nmax, chunk_bits, tmaxl)
+    assert torch.equal(trle.rle0_decode(got, tms, tns), fused)
+
+
+def test_bwt_inverse_matches_jax(rows):
+    """The doubling inverse of the periodic and single-symbol routes, on
+    aperiodic and periodic rows."""
+    batch, ns = rows
+    n = torch.from_numpy(ns)
+    last, shift, _, aper = tbwt.bwt_forward_cp(torch.from_numpy(batch), n,
+                                               jbwt.CURSOR_STRIDE)
+    assert not bool(aper[3]) and not bool(aper[4])
+    got = tbwt.bwt_inverse(last, shift, n)
+    f = jax.jit(jbwt.bwt_inverse)
+    for i in range(len(ns)):
+        want = f(jnp.asarray(last[i].numpy()), jnp.int32(shift[i]), jnp.int32(ns[i]))
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[i, : ns[i]].numpy(), batch[i, : ns[i]])
+
+
 def test_container_pack_matches_jax():
     rng = np.random.default_rng(8)
     lens = rng.integers(0, 32, 257).astype(np.uint8)
