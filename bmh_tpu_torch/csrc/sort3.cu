@@ -6,139 +6,346 @@
 // two in [1024, 2^18]) comes out ascending by the triple; with distinct
 // triples that is the stable sort by (k1, k2).
 //
-// What bounds it: device-memory traffic.  A comparison sort's least work is
-// one read and one write of the 12-byte triples; the network does
-// log2(N) (log2(N) + 1) / 2 compare-exchange steps, far more than that.
+// What bounds it: a comparison sort's least work is one read and one write
+// of the 12-byte triples (bytes); the network does log2(N) (log2(N) + 1) / 2
+// compare-exchange steps, so the kernel is bound by how many of those steps
+// one pass through device memory can carry, and by what a step costs
+// between passes.
 //
-// What the design does about it: a row does not fit one block's shared
-// memory (2^17 triples are 1.5 MB), so the network is cut at a tile of
-// T = 4096 triples, which does (48 KB: a 64-bit key and the idx):
-//   * one shared-memory launch sorts every tile through all stages
-//     k <= log2 T (tile directions alternate, so pairs of tiles form the
-//     bitonic sequences of stage log2 T + 1);
-//   * for each later stage k, one launch per distance 2^j >= T does that
-//     step's compare-exchanges in device memory (one thread per pair), then
-//     one shared-memory launch finishes every distance j < log2 T.
-// So a row passes through device memory 1 + sum over k of (k - log2 T + 1)
-// times instead of once per step.  (k1, k2) compare as one sign-biased
-// 64-bit key, idx breaks ties.  Radix passes, TMA staging or one
-// persistent block per SM are later work.
+// What the design does about it.  A thread holds 8 triples in registers and
+// a block a tile of T = 2^t triples (8 * threads; t = 12, or the whole row
+// below that; the high passes' tile is 2^13).  Which three
+// bits of a triple's tile index select the register, which five the lane
+// and which the warp is a layout; a compare-exchange at distance 2^q costs
+// no memory when q is a register bit and three warp shuffles when it is a
+// lane bit.  Two layouts cover every distance inside a tile:
+//   L  registers = bits 0, 1 and 7, lanes = bits 2..6, warps = bits
+//      8..t-1: distances 2^7..2^0; a thread's triples are two runs of 4
+//      neighbours, so it moves each plane to and from device memory as
+//      two 16-byte words and a warp 512 contiguous bytes at a time;
+//   H  registers = bits t-3..t-1, lanes = bits 8..t-4 and the lowest
+//      bits, warps = the rest: distances 2^(t-1)..2^8.
+// Moving a tile between them is one trip through shared memory (12 B per
+// triple, three int32 planes, addresses swizzled so that neither layout has
+// a bank conflict).  Nothing else touches shared memory.  Triples compare
+// as signed int32 words in order, so the keys' extremes (-2^31, the biased
+// init ranks; 2^31 - 1, the pads) need no bias.  Three kinds of launch, each one read and one write of every triple:
+//   sort   all stages k <= t of a tile: stages 1..8 in L without any
+//          memory (20 of their 36 steps shuffle), then per stage H
+//          (distances >= 2^8), L (the rest);
+//   high   for a stage k > t, the distances 2^(k-1)..2^t: a block gathers
+//          32 runs of 256 triples that lie 2^g0 apart straight into layout
+//          H of a 2^13 tile, so up to 5 distances cost one pass and no
+//          shared memory at all;
+//   merge  the stage's distances below 2^t: load into H, one trip to L,
+//          store.
+// The high passes take a 2^13 tile (most distances a pass, no shared
+// memory).  For the sort and merge tile, measured on the H100, 2^12 with
+// two 512-thread blocks to an SM beat 2^13 with one block of 1024, whose
+// loads, steps and stores do not overlap; its 48 KB of shared memory also
+// need no opt-in.  A (32, 131072) sort at t = 12 is 1 + 5 * 2 = 11 passes where one
+// launch per distance made 21.  Merge-path passes above the tile, or
+// persistent blocks that prefetch the next tile, are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLogTile = 12;
-constexpr int kThreads = 1024;
+constexpr int kE = 8;         // triples a thread holds
+constexpr int kHighLog = 13;  // log2 of the high passes' tile
+enum Kind { kSort = 1, kHigh = 2, kMerge = 4 };  // bits of `kinds`
 
-__device__ __forceinline__ uint64_t pack_key(int32_t a, int32_t b) {
-  return (static_cast<uint64_t>(static_cast<uint32_t>(a) ^ 0x80000000u) << 32) |
-         (static_cast<uint32_t>(b) ^ 0x80000000u);
+struct Regs {
+  int32_t a[kE], b[kE], c[kE];
+};
+
+template <int LOG_T>
+struct Lay {
+  static constexpr int T = 1 << LOG_T;
+  static constexpr int HI = LOG_T > 11 ? LOG_T - 11 : 0;  // H's shuffled bits 8..
+  static constexpr int LO = 5 - HI;                       // H's low lane bits
+  static constexpr int TOP = LOG_T - 3;                   // H's register bits
+  __device__ static __forceinline__ int xl(int lane, int warp, int e) {
+    return (e & 3) | (lane << 2) | ((e >> 2) << 7) | (warp << 8);
+  }
+  __device__ static __forceinline__ int xh(int lane, int warp, int e) {
+    return (lane & ((1 << LO) - 1)) | (warp << LO) | ((lane >> LO) << 8) | (e << TOP);
+  }
+  // shared-memory slot of tile index x, free of bank conflicts in both
+  // layouts: L's lane bits 5, 6 fold into bank bits 0, 1, H's lane bits
+  // 8.. into the bank bits that its low lane bits leave constant
+  __device__ static __forceinline__ int swz(int x) {
+    return x ^ ((x >> 5) & 3) ^ (((x >> 8) << LO) & 31);
+  }
+};
+
+__device__ __forceinline__ bool gt3(int32_t a1, int32_t a2, int32_t a3,
+                                    int32_t b1, int32_t b2, int32_t b3) {
+  return a1 > b1 || (a1 == b1 && (a2 > b2 || (a2 == b2 && a3 > b3)));
 }
 
-__device__ __forceinline__ bool greater(uint64_t ka, int32_t ia, uint64_t kb,
-                                        int32_t ib) {
-  return ka > kb || (ka == kb && ia > ib);
-}
-
-// One compare-exchange step at distance 2^j (j >= log2 T) of stage k, in
-// device memory.  Thread t owns pair t: the element pair (lo, lo + 2^j) of
-// row t / (N/2).  Ascending iff bit k of the row position is 0.
-__global__ void sort3_global_step(int32_t* k1, int32_t* k2, int32_t* id,
-                                  int log_n, int k, int j, long long pairs) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const long long i = t & ((1LL << (log_n - 1)) - 1);
-  const long long base = (t >> (log_n - 1)) << log_n;
-  const long long lo_e = ((i >> j) << (j + 1)) | (i & ((1LL << j) - 1));
-  const long long lo = base + lo_e;
-  const long long hi = lo + (1LL << j);
-  const bool asc = ((lo_e >> k) & 1) == 0;
-  const int32_t a1 = k1[lo], a2 = k2[lo], a3 = id[lo];
-  const int32_t b1 = k1[hi], b2 = k2[hi], b3 = id[hi];
-  if (greater(pack_key(a1, a2), a3, pack_key(b1, b2), b3) == asc) {
-    k1[lo] = b1; k2[lo] = b2; id[lo] = b3;
-    k1[hi] = a1; k2[hi] = a2; id[hi] = a3;
+// Compare-exchange across register bit BIT.  Bit e of `asc` says whether
+// the triple in register e sorts ascending in this stage.
+template <int BIT>
+__device__ __forceinline__ void cx_regs(Regs& r, unsigned asc) {
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    if ((e >> BIT) & 1) continue;
+    const int f = e | (1 << BIT);
+    const bool up = (asc >> e) & 1;
+    const bool s = gt3(r.a[e], r.b[e], r.c[e], r.a[f], r.b[f], r.c[f]) == up;
+    const int32_t ta = r.a[e], tb = r.b[e], tc = r.c[e];
+    r.a[e] = s ? r.a[f] : ta;
+    r.b[e] = s ? r.b[f] : tb;
+    r.c[e] = s ? r.c[f] : tc;
+    r.a[f] = s ? ta : r.a[f];
+    r.b[f] = s ? tb : r.b[f];
+    r.c[f] = s ? tc : r.c[f];
   }
 }
 
-// Stages k_from..k_to on tiles of 2^log_t triples held in shared memory,
-// every distance j < min(k, log_t).  Reads `in*`, writes `out*` (they may
-// be the same arrays: each block reads and writes only its own tile).
-__global__ void sort3_shared(const int32_t* in1, const int32_t* in2,
-                             const int32_t* in3, int32_t* out1, int32_t* out2,
-                             int32_t* out3, int log_n, int log_t, int k_from,
-                             int k_to) {
-  extern __shared__ unsigned char smem[];
-  const int tile = 1 << log_t;
-  uint64_t* key = reinterpret_cast<uint64_t*>(smem);
-  int32_t* ix = reinterpret_cast<int32_t*>(key + tile);
-  const long long base = static_cast<long long>(blockIdx.x) << log_t;
-  const long long e0 = base & ((1LL << log_n) - 1);  // tile start within its row
-  for (int x = threadIdx.x; x < tile; x += blockDim.x) {
-    key[x] = pack_key(in1[base + x], in2[base + x]);
-    ix[x] = in3[base + x];
+// Compare-exchange with the lane `mask` away; `upper` is this lane's bit.
+__device__ __forceinline__ void cx_lane(Regs& r, int mask, unsigned asc, bool upper) {
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int32_t pa = __shfl_xor_sync(0xffffffffu, r.a[e], mask);
+    const int32_t pb = __shfl_xor_sync(0xffffffffu, r.b[e], mask);
+    const int32_t pc = __shfl_xor_sync(0xffffffffu, r.c[e], mask);
+    const bool up = (asc >> e) & 1;
+    // the lower lane of an ascending pair keeps the smaller triple
+    const bool take = gt3(r.a[e], r.b[e], r.c[e], pa, pb, pc) == (up != upper);
+    r.a[e] = take ? pa : r.a[e];
+    r.b[e] = take ? pb : r.b[e];
+    r.c[e] = take ? pc : r.c[e];
+  }
+}
+
+// Layout L: the steps at distances 2^Q..2^0 that are <= 2^qhi.
+template <int Q>
+__device__ __forceinline__ void steps_l(Regs& r, unsigned asc, int lane, int qhi) {
+  if (Q <= qhi) {
+    if constexpr (Q == 7) cx_regs<2>(r, asc);
+    else if constexpr (Q < 2) cx_regs<Q>(r, asc);
+    else cx_lane(r, 1 << (Q - 2), asc, (lane >> (Q - 2)) & 1);
+  }
+  if constexpr (Q > 0) steps_l<Q - 1>(r, asc, lane, qhi);
+}
+
+// Layout H: the steps at distances 2^Q..2^8 that lie in [2^qlo, 2^qhi].
+template <int LOG_T, int Q>
+__device__ __forceinline__ void steps_h(Regs& r, unsigned asc, int lane, int qlo,
+                                        int qhi) {
+  using L = Lay<LOG_T>;
+  if (Q >= qlo && Q <= qhi) {
+    if constexpr (Q >= L::TOP) cx_regs<Q - L::TOP>(r, asc);
+    else cx_lane(r, 1 << (L::LO + Q - 8), asc, (lane >> (L::LO + Q - 8)) & 1);
+  }
+  if constexpr (Q > 8) steps_h<LOG_T, Q - 1>(r, asc, lane, qlo, qhi);
+}
+
+// Which registers sort ascending in stage k: bit k of the row position.
+template <int LOG_T, bool H>
+__device__ __forceinline__ unsigned asc_mask(int pos0, int lane, int warp, int k) {
+  using L = Lay<LOG_T>;
+  unsigned m = 0;
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int x = pos0 | (H ? L::xh(lane, warp, e) : L::xl(lane, warp, e));
+    m |= (((x >> k) & 1) ^ 1) << e;
+  }
+  return m;
+}
+
+// One trip through shared memory: out of layout H into L, or back.
+template <int LOG_T, bool FROM_H>
+__device__ __forceinline__ void relayout(Regs& r, int32_t* smem, int lane, int warp) {
+  using L = Lay<LOG_T>;
+  int32_t* s1 = smem;
+  int32_t* s2 = smem + L::T;
+  int32_t* s3 = smem + 2 * L::T;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int s = L::swz(FROM_H ? L::xh(lane, warp, e) : L::xl(lane, warp, e));
+    s1[s] = r.a[e];
+    s2[s] = r.b[e];
+    s3[s] = r.c[e];
   }
   __syncthreads();
-  for (int k = k_from; k <= k_to; ++k) {
-    for (int j = min(k, log_t) - 1; j >= 0; --j) {
-      for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-        const int lo = ((p >> j) << (j + 1)) | (p & ((1 << j) - 1));
-        const int hi = lo | (1 << j);
-        const bool asc = (((e0 + lo) >> k) & 1) == 0;
-        const uint64_t ka = key[lo], kb = key[hi];
-        const int32_t ia = ix[lo], ib = ix[hi];
-        if (greater(ka, ia, kb, ib) == asc) {
-          key[lo] = kb; ix[lo] = ib;
-          key[hi] = ka; ix[hi] = ia;
-        }
-      }
-      __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int s = L::swz(FROM_H ? L::xl(lane, warp, e) : L::xh(lane, warp, e));
+    r.a[e] = s1[s];
+    r.b[e] = s2[s];
+    r.c[e] = s3[s];
+  }
+}
+
+// A thread's 8 values of one plane in layout L, as two 16-byte words that
+// lie 128 triples apart; a warp moves 512 contiguous bytes per word.
+__device__ __forceinline__ void load8(const int32_t* p, int32_t (&v)[kE]) {
+  const int4 lo = reinterpret_cast<const int4*>(p)[0];
+  const int4 hi = reinterpret_cast<const int4*>(p + 128)[0];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void store8(int32_t* p, const int32_t (&v)[kE]) {
+  reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<int4*>(p + 128)[0] = make_int4(v[4], v[5], v[6], v[7]);
+}
+
+// The tile sort (MERGE false: every stage k <= LOG_T, `in*` to `out*`) or
+// the merge pass of stage k > LOG_T (MERGE true: the distances below
+// 2^LOG_T, in place on `out*`).  Block m owns tile m.
+template <int LOG_T, bool MERGE>
+__global__ void __launch_bounds__(1 << (LOG_T - 3), 1024 >> (LOG_T - 3))
+sort3_tile(const int32_t* in1, const int32_t* in2, const int32_t* in3,
+           int32_t* out1, int32_t* out2, int32_t* out3, int log_n, int k) {
+  using L = Lay<LOG_T>;
+  extern __shared__ int32_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) << LOG_T;
+  const int pos0 = static_cast<int>(base & ((1LL << log_n) - 1));
+  const long long g = base + L::xl(lane, warp, 0);
+  Regs r;
+  if constexpr (MERGE) {
+    const unsigned asc = ((pos0 >> k) & 1) ? 0u : 0xFFu;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const long long gh = base + L::xh(lane, warp, e);
+      r.a[e] = out1[gh];
+      r.b[e] = out2[gh];
+      r.c[e] = out3[gh];
+    }
+    steps_h<LOG_T, LOG_T - 1>(r, asc, lane, 8, LOG_T - 1);
+    relayout<LOG_T, true>(r, smem, lane, warp);
+    steps_l<7>(r, asc, lane, 7);
+  } else {
+    load8(in1 + g, r.a);
+    load8(in2 + g, r.b);
+    load8(in3 + g, r.c);
+#pragma unroll 1
+    for (int kk = 1; kk <= 8; ++kk)
+      steps_l<7>(r, asc_mask<LOG_T, false>(pos0, lane, warp, kk), lane, kk - 1);
+#pragma unroll 1
+    for (int kk = 9; kk <= LOG_T; ++kk) {
+      relayout<LOG_T, false>(r, smem, lane, warp);
+      steps_h<LOG_T, LOG_T - 1>(r, asc_mask<LOG_T, true>(pos0, lane, warp, kk),
+                                lane, 8, kk - 1);
+      relayout<LOG_T, true>(r, smem, lane, warp);
+      steps_l<7>(r, asc_mask<LOG_T, false>(pos0, lane, warp, kk), lane, 7);
     }
   }
-  for (int x = threadIdx.x; x < tile; x += blockDim.x) {
-    out1[base + x] = static_cast<int32_t>(static_cast<uint32_t>(key[x] >> 32) ^ 0x80000000u);
-    out2[base + x] = static_cast<int32_t>(static_cast<uint32_t>(key[x]) ^ 0x80000000u);
-    out3[base + x] = ix[x];
+  store8(out1 + g, r.a);
+  store8(out2 + g, r.b);
+  store8(out3 + g, r.c);
+}
+
+// A high pass of stage k, in place: block m gathers the 32 runs of 256
+// triples whose row bits g0..g0+4 count 0..31 (its other bits come from m)
+// into layout H of a 2^13 tile and runs the steps on tile bits qhi..qlo,
+// which are row bits g0 + q - 8.  No shared memory.
+__global__ void __launch_bounds__(1 << (kHighLog - 3), 1)
+sort3_high(int32_t* p1, int32_t* p2, int32_t* p3, int log_n, int k, int g0,
+           int qlo, int qhi) {
+  using L = Lay<kHighLog>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row_mask = (1LL << log_n) - 1;
+  const long long m = blockIdx.x;
+  const int low = g0 - 8;
+  const long long base = ((m & ((1LL << low) - 1)) << 8) |
+                         ((m >> low) << (g0 + kHighLog - 8));
+  // bit k of the row position: one of the window's bits, or the block's
+  const unsigned asc = k >= g0 && k < g0 + kHighLog - 8
+                           ? asc_mask<kHighLog, true>(0, lane, warp, 8 + k - g0)
+                           : ((((base & row_mask) >> k) & 1) ? 0u : 0xFFu);
+  Regs r;
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int x = L::xh(lane, warp, e);
+    const long long g = base + (x & 255) + (static_cast<long long>(x >> 8) << g0);
+    r.a[e] = p1[g];
+    r.b[e] = p2[g];
+    r.c[e] = p3[g];
   }
+  steps_h<kHighLog, kHighLog - 1>(r, asc, lane, qlo, qhi);
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int x = L::xh(lane, warp, e);
+    const long long g = base + (x & 255) + (static_cast<long long>(x >> 8) << g0);
+    p1[g] = r.a[e];
+    p2[g] = r.b[e];
+    p3[g] = r.c[e];
+  }
+}
+
+template <int LOG_T>
+cudaError_t run(const int32_t* k1, const int32_t* k2, const int32_t* id,
+                int32_t* o1, int32_t* o2, int32_t* o3, int b, int log_n,
+                int kinds, cudaStream_t s) {
+  constexpr int kTile = 1 << LOG_T;
+  constexpr int kThreads = kTile / kE;
+  constexpr size_t kSmem = 3 * sizeof(int32_t) * kTile;
+  static_assert(kSmem <= 48 * 1024, "a larger tile needs the shared-memory opt-in");
+  const long long total = static_cast<long long>(b) << log_n;
+  const int tiles = static_cast<int>(total >> LOG_T);
+  if (tiles == 0) return cudaSuccess;
+  cudaError_t err;
+  if (kinds & kSort) {
+    sort3_tile<LOG_T, false><<<tiles, kThreads, kSmem, s>>>(
+        k1, k2, id, o1, o2, o3, log_n, 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  for (int k = LOG_T + 1; k <= log_n; ++k) {
+    int j_hi = k - 1;  // the longest distance of the stage still to do
+    while (j_hi >= LOG_T) {
+      // the window of 5 row bits that ends at j_hi, not below bit 8
+      const int g0 = j_hi - 4 > 8 ? j_hi - 4 : 8;
+      const int j_lo = g0 > LOG_T ? g0 : LOG_T;
+      if (kinds & kHigh) {
+        sort3_high<<<static_cast<int>(total >> kHighLog), 1 << (kHighLog - 3), 0, s>>>(
+            o1, o2, o3, log_n, k, g0, 8 + j_lo - g0, 8 + j_hi - g0);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      j_hi = j_lo - 1;
+    }
+    if (kinds & kMerge) {
+      sort3_tile<LOG_T, true><<<tiles, kThreads, kSmem, s>>>(
+          o1, o2, o3, o1, o2, o3, log_n, k);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Sorts each of the b rows of 2^log_n triples from (k1, k2, id) into
-// (o1, o2, o3).  Returns cudaGetLastError() after the launches.
+// (o1, o2, o3), all 16-byte aligned, with tiles of 2^log_t triples (10..12,
+// at most log_n; a tile below the row needs rows of at least 2^13 for the
+// high passes).  kinds: which launches to make, a sum of 1 (the tile sort),
+// 2 (the high passes) and 4 (the merge passes); 7 is the sort, the single
+// bits are for timing a kind on its own.  Returns the first
+// cudaGetLastError() that is not 0, or cudaErrorInvalidValue for arguments
+// it does not take.
 extern "C" int bmh_sort3(const void* k1, const void* k2, const void* id,
                          void* o1, void* o2, void* o3, int b, int log_n,
-                         void* stream) {
+                         int log_t, int kinds, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a1 = static_cast<const int32_t*>(k1);
+  const auto* a2 = static_cast<const int32_t*>(k2);
+  const auto* a3 = static_cast<const int32_t*>(id);
   auto* p1 = static_cast<int32_t*>(o1);
   auto* p2 = static_cast<int32_t*>(o2);
   auto* p3 = static_cast<int32_t*>(o3);
-  const int log_t = log_n < kLogTile ? log_n : kLogTile;
-  const int tile = 1 << log_t;
-  const long long total = static_cast<long long>(b) << log_n;
-  const int tiles = static_cast<int>(total >> log_t);
-  const int threads = tile / 2 < kThreads ? tile / 2 : kThreads;
-  const size_t smem = static_cast<size_t>(tile) * (sizeof(uint64_t) + sizeof(int32_t));
-  if (tiles == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      sort3_shared, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sort3_shared<<<tiles, threads, smem, s>>>(
-      static_cast<const int32_t*>(k1), static_cast<const int32_t*>(k2),
-      static_cast<const int32_t*>(id), p1, p2, p3, log_n, log_t, 1, log_t);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const long long pairs = total / 2;
-  const int step_threads = 256;
-  const int step_blocks = static_cast<int>((pairs + step_threads - 1) / step_threads);
-  for (int k = log_t + 1; k <= log_n; ++k) {
-    for (int j = k - 1; j >= log_t; --j) {
-      sort3_global_step<<<step_blocks, step_threads, 0, s>>>(p1, p2, p3, log_n, k, j, pairs);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    sort3_shared<<<tiles, threads, smem, s>>>(p1, p2, p3, p1, p2, p3, log_n, log_t, k, k);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (log_t > log_n || log_n > 30 || (log_t < log_n && log_n < kHighLog))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (log_t) {
+    case 10: return static_cast<int>(run<10>(a1, a2, a3, p1, p2, p3, b, log_n, kinds, s));
+    case 11: return static_cast<int>(run<11>(a1, a2, a3, p1, p2, p3, b, log_n, kinds, s));
+    case 12: return static_cast<int>(run<12>(a1, a2, a3, p1, p2, p3, b, log_n, kinds, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }

@@ -16,9 +16,9 @@ both programs and both sorts give the same bytes.  bmh_tpu's while_loops
 are host loops that read one device flag per round; rows that finished stay
 frozen, as a vmapped while_loop leaves them.
 
-The inverses: the checkpointed LF-cursor walk (kernel K4) for aperiodic
-blocks, the permutation-doubling `bwt_inverse` for periodic and
-single-symbol ones.
+The inverses: the checkpointed LF-cursor walk (kernel K4, over the
+self-composed table with lf2 on) for aperiodic blocks, the
+permutation-doubling `bwt_inverse` for periodic and single-symbol ones.
 
 uint32 quantities of the JAX version (the biased 4-byte init rank, the
 packed LF keys) are carried in int64 here: torch's uint32 has no shifts or
@@ -345,14 +345,22 @@ def _lf_map(last: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return _lf_map_packed(last, n) & ((1 << _LF_SHIFT) - 1)
 
 
+def _walk_hop(steps: int) -> int:
+    """LF links one step of the cursor walk follows: K4's composed hop with
+    lf2 on (the default) where it divides `steps`, else 1."""
+    hop = ibwt_kernel.HOP
+    return hop if config_mod.DEFAULT.lf2 and steps % hop == 0 else 1
+
+
 def bwt_inverse_cursors(last: torch.Tensor, shift: torch.Tensor,
                         cps: torch.Tensor, n: torch.Tensor,
                         stride: int) -> torch.Tensor:
-    """Inverse BWT by checkpointed LF-walk cursors (the LF¹ form at every
-    block size: bmh_tpu's LF² variant changes no output byte).
+    """Inverse BWT by checkpointed LF-walk cursors.
 
     Cursor j reproduces output positions [j*steps, (j+1)*steps) from
-    rank[(j*stride) % n] (cursor 0 from `shift`); the walk is kernel K4.
+    rank[(j*stride) % n] (cursor 0 from `shift`); the walk is kernel K4,
+    over the table composed with itself `_walk_hop` times (BMH_LF2, read
+    at call time; no mode changes an output byte).
     Returns (B, Nmax) uint8, zero past n."""
     b, nmax = last.shape
     k = max(nmax // stride, 1)
@@ -363,7 +371,8 @@ def bwt_inverse_cursors(last: torch.Tensor, shift: torch.Tensor,
     table = (packed - ((packed >> 31) << 32)).to(torch.int32)
     starts = torch.cat([shift[:, None], cps[:, : k - 1]], dim=1)
     starts = starts.clamp(0, nmax - 1).to(torch.int32)
-    walked = ibwt_kernel.ibwt_walk(table, starts, steps)  # (B, k, steps)
+    walked = ibwt_kernel.ibwt_walk(table, starts, steps,
+                                   _walk_hop(steps))  # (B, k, steps)
     out = walked.reshape(b, nmax)  # cursor-major == output order
     pos = torch.arange(nmax, device=last.device)
     return torch.where(pos[None, :] < n[:, None], out, 0)

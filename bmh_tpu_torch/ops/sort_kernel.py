@@ -1,4 +1,4 @@
-"""Kernel K5: the bitonic sort of (k1, k2, idx) triples (csrc/sort3.cu).
+"""Kernel K5: the sort of (k1, k2, idx) triples (csrc/sort3.cu).
 
 Replaces bmh_tpu/ops/pallas_sort.py `sort3`.  Each row of (B, N) int32
 inputs, N a power of two in [MIN_N, MAX_N], comes out ascending by the
@@ -8,8 +8,11 @@ stable sort by (k1, k2).  A row is one vmapped call of bmh_tpu's kernel.
 `sort3_plain` is the same bitonic network as whole-tensor compare-exchange
 steps in bmh_tpu's (k, j) schedule (`pallas_sort._schedule`: the partner of
 element e is e ^ (1 << j), bit k of e picks the direction); a CPU tensor
-runs it.  The library sort that K5 is timed against, `torch.sort`, is not
-its plain version.
+runs it.  The kernel runs the same network cut into tiles (registers,
+warp shuffles, one shared-memory trip per stage); with distinct triples
+the sorted result is unique, so any cut equals the plain version exactly.
+The library sort that K5 is timed against, `torch.sort`, is not its plain
+version.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from . import _build
 MIN_N = 1024     # bmh_tpu's floor (8 sublanes x 128 lanes)
 MAX_N = 1 << 18  # bmh_tpu's _PALLAS_SORT_MAX
 _SRC = "sort3.cu"
+_LOG_TILE = 12   # the tile rows are sorted in; shorter rows are one tile
+TILE_SORT, HIGH_PASSES, MERGE_PASSES = 1, 2, 4  # `kinds` bits of `launch`
+ALL_KINDS = TILE_SORT | HIGH_PASSES | MERGE_PASSES
 
 
 def in_envelope(n: int) -> bool:
@@ -56,26 +62,44 @@ def sort3_plain(k1: torch.Tensor, k2: torch.Tensor, idx: torch.Tensor):
     return t[0], t[1], t[2]
 
 
+def pick_log_tile(n: int) -> int:
+    """log2 of the tile K5 sorts rows of n triples with: 2^12, or the whole
+    row below that.  Measured on the H100: two 512-thread blocks to an SM
+    overlap their loads, steps and stores, which pays more than the pass
+    per stage that a 2^13 tile saves; smaller tiles only add passes."""
+    return min(_LOG_TILE, n.bit_length() - 1)
+
+
+def launch(k1, k2, idx, out, log_t: int, kinds: int = ALL_KINDS) -> None:
+    """One call into the library on the current stream: the launches of
+    `kinds` (TILE_SORT | HIGH_PASSES | MERGE_PASSES) at tile 2^log_t.
+    `sort3` is the wrapper; this is what it and the timing of one kind of
+    launch go through."""
+    b, n = k1.shape
+    fn = _build.lib(_SRC).bmh_sort3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(k1.data_ptr(), k2.data_ptr(), idx.data_ptr(),
+                    *(o.data_ptr() for o in out), b, n.bit_length() - 1,
+                    log_t, kinds,
+                    torch.cuda.current_stream(k1.device).cuda_stream), "sort3")
+
+
 def sort3(k1: torch.Tensor, k2: torch.Tensor, idx: torch.Tensor):
     """The sort: plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor.  Raises ValueError outside the envelope."""
     if (k1.dim() != 2 or any(x.shape != k1.shape or x.dtype != torch.int32
                              or x.device != k1.device for x in (k1, k2, idx))):
         raise ValueError("sort3: needs three int32 (B, N) tensors on one device")
-    b, n = k1.shape
+    n = k1.shape[1]
     if not in_envelope(n):
         raise ValueError(f"sort3: row length {n} is not a power of two in "
                          f"[{MIN_N}, {MAX_N}]")
     if not _build.on_card(k1, "sort3"):
         return sort3_plain(k1, k2, idx)
-    if not all(x.is_contiguous() for x in (k1, k2, idx)):
-        raise ValueError("sort3: needs contiguous inputs")
-    out = [torch.empty_like(k1) for _ in range(3)]
-    fn = _build.lib(_SRC).bmh_sort3
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (k1, k2, idx)):
+        raise ValueError("sort3: needs contiguous, 16-byte aligned inputs")
+    out = tuple(torch.empty_like(k1) for _ in range(3))
     _build.LAUNCHES["sort3"] += 1
-    _build.check(fn(k1.data_ptr(), k2.data_ptr(), idx.data_ptr(),
-                    *(o.data_ptr() for o in out), b, n.bit_length() - 1,
-                    torch.cuda.current_stream(k1.device).cuda_stream), "sort3")
-    return tuple(out)
+    launch(k1, k2, idx, out, pick_log_tile(n))
+    return out

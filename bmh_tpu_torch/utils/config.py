@@ -6,10 +6,15 @@ the kernel build cache (ops/_build.py) keys on source and flags only.
 `pallas_sort` (BMH_PALLAS_SORT, off by default as in bmh_tpu) sends every
 BWT sort inside its envelope through kernel K5 (ops/bwt._stable_sort3);
 full_rounds, tier1_rounds, tier2_div and sparse_cap_div shape the
-sparse/adaptive compress program as in bmh_tpu.  The other TPU knobs
-(pallas_decode, pallas_imtf, lf2, devices, inflight, decode_place) are
-accepted and validated but not read: the decode kernels always run on a
-card, and the rest select machinery the port does not have yet.
+sparse/adaptive compress program as in bmh_tpu.  `lf2` (BMH_LF2, on by
+default as in bmh_tpu) lets the inverse-BWT walk, kernel K4, run over the
+LF table composed with itself (ops/bwt._walk_hop: 16-step row links at
+every block size, where bmh_tpu packs two-step LF² entries for blocks <=
+64 KiB only); off, it walks one row a step.
+The other TPU knobs (pallas_decode, pallas_imtf, devices, inflight,
+decode_place) are accepted and validated but not read: the decode kernels
+always run on a card, and the rest select machinery the port does not have
+yet.
 """
 
 from __future__ import annotations
@@ -78,11 +83,12 @@ class CodecConfig:
     # buys no decode time and only costs 4/stride bytes/input byte of
     # container — 4096 is the sweet spot
     cursor_stride: int = field(default_factory=lambda: _env_int("BMH_CURSOR_STRIDE", 4096))
-    # LF²-packed inverse-BWT walk for blocks <= 64 KiB: halves the dependent
-    # gather chain (the decompress roofline) by walking a self-composed LF
-    # map whose entries pack two emitted bytes + a 16-bit next row into one
-    # uint32 (ops/bwt.bwt_inverse_cursors).  Read at trace time — part of
-    # the compiled program, not a per-call switch.
+    # composed inverse-BWT walk: shortens the dependent gather chain (the
+    # decompress roofline) by walking a self-composed LF map.  bmh_tpu's
+    # entries pack two emitted bytes + a 16-bit next row into one uint32,
+    # for blocks <= 64 KiB; here the walk follows a table of 16-step row
+    # links at every block size (ops/bwt.bwt_inverse_cursors).  Read at
+    # every call.
     lf2: bool = field(default_factory=lambda: _env_bool("BMH_LF2", True))
     # RLE1 pre-BWT run collapse (bzip2-style): applied per block when it
     # strictly shrinks; collapses the long-run inputs that force maximum

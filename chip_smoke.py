@@ -9,15 +9,22 @@ Phases, each of which raises (non-zero exit) on any mismatch:
   3. kernels  capture K1-K4's inputs from a real 32-block, 128 KiB decode
               batch and K5's from a real compress of the same batch with
               BMH_PALLAS_SORT on (first doubling round, (32, 131072));
-              kernel vs plain PyTorch version, exact; K5 also timed at the
-              sparse tier-1 shape and against torch.sort (library_ms)
+              kernel vs plain PyTorch version, exact.  K4 in both modes
+              (one row a step; 16-step row links) at the captured shape and
+              on a captured batch of 64 KiB blocks, against its plain
+              one-row-a-step walk, each timed whole and as compose and walk
+              parts.  K5 timed per kind
+              of launch and, beside torch.sort (library_ms), at the sparse
+              sets' one-row shapes; the casts around it timed too
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
-     trip     decompress at 128 KiB on the card, once with default knobs
-              and once with BMH_PALLAS_SORT on: bit-exact, container
+     trip     decompress at 128 KiB on the card, with default knobs, with
+              BMH_PALLAS_SORT on and with BMH_LF2 off: bit-exact, container
               SHA-256 equal to bmh_tpu's (tests/data/torch_golden.json),
-              every kernel launched by the union of the two runs; MB/s of
-              both runs, and compress MB/s of the sparse/adaptive against
-              the full-rounds program; peak memory
+              every kernel launched by the union of the runs; MB/s of the
+              runs, and compress MB/s of the sparse/adaptive against the
+              full-rounds program; peak memory.  Then the stream's first
+              4 MiB at 64 KiB blocks with BMH_LF2 on and off (the composed
+              and the one-row walk): bit-exact, one container
   5. routes   a 512 KiB tiled random 1024-byte motif (pathological batch,
               periodic blocks) and b"\x00" * 3 (single symbol) round-trip
               on the card, containers equal to the CPU run's
@@ -81,7 +88,7 @@ def nbytes(*ts) -> int:
 def capture_kernel_inputs(bt, blob: bytes) -> dict:
     """Decompress `blob` once with every kernel wrapper recording its first
     call's arguments (cloned), so the comparisons run at the shapes the
-    main path gives each kernel."""
+    main path gives each kernel (K4's include the hop the path chose)."""
     from bmh_tpu_torch.ops import decode_kernels, ibwt_kernel, imtf_kernel
 
     captured: dict = {}
@@ -148,7 +155,90 @@ def sort_bound(k1) -> tuple[int, int]:
     return 24 * b * n, 3 * b * n * (n.bit_length() - 1)
 
 
-def kernel_phase(bt, blob: bytes, head: bytes) -> list[dict]:
+def sort_side_shapes(sorts: dict, card: str) -> None:
+    """K5 beside the library call at the sparse sets' one-row shapes
+    (captured from the compress when its ties reached them, else random),
+    its launches by kind at the doubling-round shape, and the int64 <->
+    int32 casts that ops/bwt._stable_sort3 makes around every call."""
+    from bmh_tpu_torch.ops import sort_kernel
+
+    for shape in ((1, 2 * BLOCK), (1, BLOCK // 2)):
+        args = sorts.get(shape)
+        if args is None:
+            g = torch.Generator(device="cuda").manual_seed(1)
+            args = [torch.randint(0, 1 << 17, shape, generator=g, device="cuda",
+                                  dtype=torch.int32) for _ in range(2)]
+            args.append(torch.arange(shape[1], device="cuda", dtype=torch.int32)[None])
+        got, want = sort_kernel.sort3(*args), sort_kernel.sort3_plain(*args)
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"sort3 disagrees with its plain version at {shape}")
+        print(f"[kernels] sort3 at {list(shape)} "
+              f"({'captured' if shape in sorts else 'random'}): "
+              f"ms={cuda_ms(lambda: sort_kernel.sort3(*args), 20):.4f} "
+              f"library_ms={cuda_ms(lambda: sort_library(*args), 20):.4f} bound_ms="
+              f"{sort_bound(args[0])[0] / PEAK_BYTES_PER_S * 1e3:.4f}", flush=True)
+    k5 = sorts[(32, BLOCK)]
+    out = tuple(torch.empty_like(x) for x in k5)
+    log_t = sort_kernel.pick_log_tile(BLOCK)
+    kinds = {name: cuda_ms(lambda: sort_kernel.launch(*k5, out, log_t, kind), 10)
+             for name, kind in (("tile sort", sort_kernel.TILE_SORT),
+                                ("high passes", sort_kernel.HIGH_PASSES),
+                                ("merge passes", sort_kernel.MERGE_PASSES))}
+    wide = [x.to(torch.int64) for x in k5]
+    casts = cuda_ms(lambda: [x.to(torch.int32).contiguous() for x in wide]
+                    + [x.to(torch.int64) for x in k5], 10)
+    print(f"[kernels] sort3 at [32, {BLOCK}] by kind of launch, tile 2^{log_t}, "
+          f"{card}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.items())
+          + f"; the six casts around it {casts:.4f} ms", flush=True)
+
+
+def walk_modes(bt, data: bytes, cap: dict, card: str) -> None:
+    """K4 in both modes against its plain one-row-a-step walk, at the
+    captured (32, 131072) shape and on a captured batch of 64 KiB blocks.
+    Each mode's whole call, its compose and walk parts, and the walk's time
+    per dependent step."""
+    from bmh_tpu_torch.ops import ibwt_kernel
+
+    small = bt.compress_bytes(data[: 32 * (BLOCK // 2)], block_size=BLOCK // 2,
+                              device="cuda")
+    t64k, s64k, steps64k, hop64k = capture_kernel_inputs(bt, small)["ibwt_walk"]
+    require(hop64k == ibwt_kernel.HOP and t64k.shape[1] == BLOCK // 2,
+            f"the 64 KiB path did not take the composed walk (hop {hop64k})")
+    table, starts, steps, _ = cap["ibwt_walk"]
+    for tab, st, nsteps in ((table, starts, steps), (t64k, s64k, steps64k)):
+        want = ibwt_kernel.ibwt_walk_plain(tab, st, nsteps, 1)
+        out = torch.empty_like(want)
+        # what a hostile container's clamped start gives: the last row (a pad
+        # row wherever a block is shorter than its bucket)
+        hostile = st.clone()
+        hostile[:, -1] = tab.shape[1] - 1
+        want_hostile = ibwt_kernel.ibwt_walk_plain(tab, hostile, nsteps, 1)
+        for hop in (1, ibwt_kernel.HOP):
+            got = ibwt_kernel.ibwt_walk(tab, st, nsteps, hop)
+            torch.cuda.synchronize()
+            require(torch.equal(ibwt_kernel.ibwt_walk(tab, hostile, nsteps, hop),
+                                want_hostile),
+                    f"ibwt_walk hop {hop} at {list(tab.shape)} disagrees with the "
+                    "plain one-row walk from a start clamped onto the last row")
+            require(torch.equal(got, want)
+                    and torch.equal(ibwt_kernel.ibwt_walk_plain(tab, st, nsteps, hop), want),
+                    f"ibwt_walk hop {hop} at {list(tab.shape)}: the kernel or the "
+                    "plain version at that hop disagrees with the plain one-row walk")
+            scratch = ibwt_kernel.scratch_for(tab, st, nsteps, hop)
+            ms = cuda_ms(lambda: ibwt_kernel.ibwt_walk(tab, st, nsteps, hop), 20)
+            compose = cuda_ms(lambda: ibwt_kernel.launch(
+                tab, st, out, scratch, nsteps, hop, ibwt_kernel.COMPOSE), 20) if hop > 1 else 0.0
+            walk = cuda_ms(lambda: ibwt_kernel.launch(
+                tab, st, out, scratch, nsteps, hop, ibwt_kernel.WALK), 20)
+            print(f"[kernels] ibwt_walk hop {hop} at {list(tab.shape)}, starts "
+                  f"{list(st.shape)}, {card}: equal=True ms={ms:.4f} "
+                  f"compose_ms={compose:.4f} walk_ms={walk:.4f} "
+                  f"({nsteps // hop} dependent steps a cursor, walk_ms over "
+                  f"them {walk * 1e6 / (nsteps // hop):.0f} ns)",
+                  flush=True)
+
+
+def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
     from bmh_tpu_torch.ops import decode_kernels as dk
     from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
 
@@ -157,26 +247,12 @@ def kernel_phase(bt, blob: bytes, head: bytes) -> list[dict]:
     require((32, BLOCK) in sorts, f"no (32, {BLOCK}) K5 call captured: "
                                   f"{sorted(sorts)}")
     k5 = sorts[(32, BLOCK)]
-    tier1 = sorts.get((1, 2 * BLOCK))
-    if tier1 is None:
-        # this batch's ties fit no sparse set: time K5 on a random row
-        g = torch.Generator(device="cuda").manual_seed(1)
-        tier1 = [torch.randint(0, 1 << 17, (1, 2 * BLOCK), generator=g,
-                               device="cuda", dtype=torch.int32),
-                 torch.randint(0, 1 << 17, (1, 2 * BLOCK), generator=g,
-                               device="cuda", dtype=torch.int32),
-                 torch.arange(2 * BLOCK, device="cuda",
-                              dtype=torch.int32)[None]]
-    t_ms = cuda_ms(lambda: sort_kernel.sort3(*tier1), 20)
-    t_lib = cuda_ms(lambda: sort_library(*tier1), 20)
-    print(f"[kernels] sort3 at the sparse tier-1 shape {list(tier1[0].shape)}"
-          f" ({'captured' if (1, 2 * BLOCK) in sorts else 'random'}): "
-          f"ms={t_ms:.4f} library_ms={t_lib:.4f} bound_ms="
-          f"{sort_bound(tier1[0])[0] / PEAK_BYTES_PER_S * 1e3:.4f}", flush=True)
+    sort_side_shapes(sorts, card)
+    walk_modes(bt, head, cap, card)
     wext, count_t, chunk_bits, maxl = cap["phase_a"]
     wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
     (codes_tm,) = cap["imtf_chunks"]
-    table, starts, steps = cap["ibwt_walk"]
+    table, starts, steps, hop = cap["ibwt_walk"]
     nc = wext.shape[1]
     fsm_steps = chunk_bits + 32
 
@@ -210,8 +286,8 @@ def kernel_phase(bt, blob: bytes, head: bytes) -> list[dict]:
     cases.append(dict(
         name="ibwt_walk", source="bmh_tpu_torch/csrc/ibwt_walk.cu",
         replaces="bmh_tpu/ops/pallas_ibwt.py:68",
-        kernel=lambda: ibwt_kernel.ibwt_walk(table, starts, steps),
-        plain=lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps),
+        kernel=lambda: ibwt_kernel.ibwt_walk(table, starts, steps, hop),
+        plain=lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1),
         bytes=nbytes(table, starts) + b * kc * steps, ops=3 * b * kc * steps,
         reps=20))
     k5_bytes, k5_ops = sort_bound(k5[0])
@@ -334,15 +410,18 @@ def main() -> None:
 
     # 3. kernels, at the shapes of one real 32-block batch
     head = bt.compress_bytes(data[: 32 * BLOCK], block_size=BLOCK, device="cuda")
-    kernels = kernel_phase(bt, head, data[: 32 * BLOCK])
+    kernels = kernel_phase(bt, head, data[: 32 * BLOCK], card)
 
-    # 4. round trip, default knobs and BMH_PALLAS_SORT on: counts set to 0
-    #    just before each run of the main path, read just after
+    # 4. round trip, default knobs, BMH_PALLAS_SORT on, BMH_LF2 off: counts
+    #    set to 0 just before each run of the main path, read just after
     from bmh_tpu_torch.utils import config
 
     runs = {}
-    for label, sort3 in (("default", False), ("pallas_sort", True)):
+    knobs = (("default", False, True), ("pallas_sort", True, True),
+             ("lf2_off", False, False))
+    for label, sort3, lf2 in knobs:
         config.DEFAULT.pallas_sort = sort3
+        config.DEFAULT.lf2 = lf2
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         blob = bt.compress_bytes(data, block_size=BLOCK, device="cuda")
@@ -350,6 +429,7 @@ def main() -> None:
         launches = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         config.DEFAULT.pallas_sort = False
+        config.DEFAULT.lf2 = True
         require(out == data, f"{label} round trip is not bit-exact")
         blob_sha = hashlib.sha256(blob).hexdigest()
         print(f"[roundtrip] {label}: {len(data)} -> {len(blob)} bytes, sha256 "
@@ -368,8 +448,9 @@ def main() -> None:
         row["launches_by_run"] = {label: r[row["name"]] for label, r in runs.items()}
 
     mb = len(data) / 1e6
-    for label, sort3 in (("default", False), ("pallas_sort", True)):
+    for label, sort3, lf2 in knobs:
         config.DEFAULT.pallas_sort = sort3
+        config.DEFAULT.lf2 = lf2
         c_times, d_times = [], []
         for _ in range(3):
             t = time.perf_counter()
@@ -379,12 +460,31 @@ def main() -> None:
             bt.decompress_bytes(blob, device="cuda")
             d_times.append(time.perf_counter() - t)
         config.DEFAULT.pallas_sort = False
+        config.DEFAULT.lf2 = True
         print(f"[roundtrip] {label} {card}: compressed {len(blob)} B "
               f"(ratio {len(blob) / len(data):.4f}), compress "
               f"{mb / statistics.median(c_times):.3f} MB/s, decompress "
               f"{mb / statistics.median(d_times):.3f} MB/s (median of 3 warm); "
               f"runs c={c_times} d={d_times}", flush=True)
     program_rates(bt, data, card)
+
+    # 64 KiB blocks: the composed walk (BMH_LF2 on) and the one-row walk (off)
+    part = data[: 4 << 20]
+    blobs64 = {}
+    for lf2 in (True, False):
+        config.DEFAULT.lf2 = lf2
+        _build.reset_launches()
+        blobs64[lf2] = bt.compress_bytes(part, block_size=BLOCK // 2, device="cuda")
+        out = bt.decompress_bytes(blobs64[lf2], device="cuda")
+        walks = _build.LAUNCHES["ibwt_walk"]
+        config.DEFAULT.lf2 = True
+        require(out == part, f"64 KiB-block round trip (lf2={lf2}) is not bit-exact")
+        require(walks > 0, f"64 KiB-block round trip (lf2={lf2}) launched no walk")
+        print(f"[roundtrip] 64 KiB blocks, lf2={lf2}: {len(part)} -> "
+              f"{len(blobs64[lf2])} bytes, bit-exact, ibwt_walk launches {walks}",
+              flush=True)
+    require(blobs64[True] == blobs64[False],
+            "BMH_LF2 changed the 64 KiB-block container")
 
     # 5. routes: pathological + periodic blocks, and a single-symbol block
     rng = np.random.default_rng(args.seed)

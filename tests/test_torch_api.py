@@ -120,6 +120,24 @@ def test_compress_matches_bmh_tpu_both_sort_routes(monkeypatch, name, sort3):
     assert bt.decompress_bytes(got, device="cpu") == data
 
 
+@pytest.mark.parametrize("lf2", [True, False], ids=["lf2", "lf1"])
+def test_64k_blocks_roundtrip_both_walks(monkeypatch, lf2):
+    """64 KiB blocks, where BMH_LF2 sends bmh_tpu's inverse BWT over its
+    LF² table and the port's over 16-step row links: the container is bmh_tpu's byte for byte, and each package
+    decodes the other's, with the knob on and off."""
+    bs = 1 << 16
+    if "64k" not in _REFS:
+        rng = np.random.default_rng(64)
+        data = _text(rng, 100000) + bytes(rng.integers(0, 256, 20000, dtype=np.uint8))
+        _REFS["64k"] = (data, bmh_tpu.compress_bytes(data, block_size=bs))
+    data, ref = _REFS["64k"]
+    monkeypatch.setattr(tconfig.DEFAULT, "lf2", lf2)
+    got = bt.compress_bytes(data, block_size=bs, device="cpu")
+    assert got == ref and len(tcont.unpack_file(got)[2]) == 2
+    assert bt.decompress_bytes(ref, device="cpu") == data
+    assert bmh_tpu.decompress_bytes(got) == data
+
+
 def test_full_rounds_program_writes_the_same_blocks():
     """Forcing the full-rounds program on every batch changes no byte."""
     data, bs = STREAMS["text"]

@@ -74,26 +74,66 @@ def test_imtf_kernel_matches_plain(cuda):
     assert torch.equal(ys, ys_p) and torch.equal(q, q_p)
 
 
-def test_ibwt_kernel_matches_plain(cuda):
-    g = torch.Generator(device="cpu").manual_seed(4)
-    b, nmax, k = 5, 8192, 2
-    rows = torch.stack([torch.randperm(nmax, generator=g) for _ in range(b)])
+def _walk_table(g, b, nmax, n, cuda):
+    """Random packed LF tables: n real rows (a permutation, random bytes),
+    then pad rows with byte field 256 that link to themselves."""
+    rows = torch.stack([torch.cat([torch.randperm(n, generator=g),
+                                   torch.arange(n, nmax)]) for _ in range(b)])
     byte = torch.randint(0, 256, (b, nmax), generator=g)
-    table = ((byte << 23) | rows).to(torch.int32).to(cuda)
-    starts = torch.randint(0, nmax, (b, k), generator=g, dtype=torch.int32).to(cuda)
-    assert torch.equal(ibwt_kernel.ibwt_walk(table, starts, nmax // k),
-                       ibwt_kernel.ibwt_walk_plain(table, starts, nmax // k))
+    byte[:, n:] = 256
+    packed = (byte << 23) | rows
+    return (packed - ((packed >> 31) << 32)).to(torch.int32).to(cuda)
 
 
-@pytest.mark.parametrize("b,n", [(3, 1024), (32, 1 << 17), (1, 1 << 18)])
+@pytest.mark.parametrize("hop", [1, ibwt_kernel.HOP])
+@pytest.mark.parametrize("b,nmax,n,k", [(5, 8192, 8000, 2), (3, 1 << 16, 1 << 16, 16),
+                                        (4, 1 << 17, (1 << 17) - 9, 32),
+                                        (40, 1 << 16, (1 << 16) - 1, 64)])
+def test_ibwt_kernel_matches_plain(cuda, hop, b, nmax, n, k):
+    """K4 in both modes (one row a step; 16-step row links) against the
+    plain one-row-a-step walk, with one start clamped onto a pad row; the
+    last case has more cursors than one to a block."""
+    g = torch.Generator(device="cpu").manual_seed(4 + nmax)
+    table = _walk_table(g, b, nmax, n, cuda)
+    starts = torch.randint(0, n, (b, k), generator=g, dtype=torch.int32)
+    starts[0, -1] = nmax - 1  # what a hostile container's clamped start gives
+    starts = starts.to(cuda)
+    steps = nmax // k
+    want = ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1)
+    _build.reset_launches()
+    assert torch.equal(ibwt_kernel.ibwt_walk(table, starts, steps, hop), want)
+    assert _build.LAUNCHES["ibwt_walk"] == 1
+    assert torch.equal(ibwt_kernel.ibwt_walk_plain(table, starts, steps, hop), want)
+
+
+@pytest.mark.parametrize("lf2", [True, False], ids=["lf2", "lf1"])
+@pytest.mark.parametrize("bs", [1 << 16, 1 << 17])
+def test_roundtrip_both_walks(cuda, monkeypatch, bs, lf2):
+    """BMH_LF2 on and off, at 64 and 128 KiB blocks: same container as the
+    CPU run, bit-exact round trip."""
+    monkeypatch.setattr(config.DEFAULT, "lf2", lf2)
+    data = _text(3 * bs + 1000, 7)
+    blob = bt.compress_bytes(data, block_size=bs, device=cuda)
+    assert blob == bt.compress_bytes(data, block_size=bs, device="cpu")
+    _build.reset_launches()
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    assert _build.LAUNCHES["ibwt_walk"] > 0
+
+
+@pytest.mark.parametrize("b,n", [(3, 1024), (2, 2048), (7, 4096), (5, 1 << 15),
+                                 (32, 1 << 17), (1, 1 << 16), (1, 1 << 18)])
 def test_sort3_kernel_matches_plain(cuda, b, n):
-    """K5 at its envelope's floor, the 32-block doubling-round shape and
-    the sparse tier-1 shape; many ties, keys at both int32 extremes."""
+    """K5 at its envelope's floor, on rows sorted as one tile, at B no
+    power of two, the 32-block doubling-round shape and the sparse sets'
+    one-row shapes; many ties, keys at both int32 extremes (-2^31, the
+    biased init ranks; INT32_BIG, the pads)."""
     g = torch.Generator(device="cpu").manual_seed(n)
     k1 = torch.randint(0, max(4, n // 64), (b, n), generator=g, dtype=torch.int32)
     k2 = torch.randint(0, 8, (b, n), generator=g, dtype=torch.int32)
     k1[:, ::7] = -(2**31)
+    k1[:, 2::9] = 2**31 - 1
     k2[:, 3::11] = 2**31 - 1
+    k2[:, 1::13] = -(2**31)
     idx = torch.stack([torch.randperm(n, generator=g) for _ in range(b)]).to(torch.int32)
     args = [x.to(cuda) for x in (k1, k2, idx)]
     got, want = sort_kernel.sort3(*args), sort_kernel.sort3_plain(*args)
@@ -130,9 +170,19 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ibwt_kernel.ibwt_walk(torch.zeros((2, 8), dtype=torch.int32, device=cuda),
                               torch.zeros((3, 1), dtype=torch.int32, device=cuda), 8)
+    tab = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    st = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    for hop in (2, 16):  # an unknown hop; one that does not divide steps
+        with pytest.raises(ValueError):
+            ibwt_kernel.ibwt_walk(tab, st, 8, hop)
+    with pytest.raises(ValueError):
+        ibwt_kernel.ibwt_walk(tab.long(), st, 8)
     bad = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         sort_kernel.sort3(bad, bad, bad[:, ::2].contiguous())
     with pytest.raises(ValueError):
         sort_kernel.sort3(*(torch.zeros((2, 2048), dtype=torch.int32, device=cuda)[:, ::2]
+                            for _ in range(3)))
+    with pytest.raises(ValueError, match="aligned"):  # 4 bytes off a 16-byte line
+        sort_kernel.sort3(*(torch.zeros(1025, dtype=torch.int32, device=cuda)[1:][None]
                             for _ in range(3)))

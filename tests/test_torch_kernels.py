@@ -1,6 +1,8 @@
 """bmh_tpu_torch kernels K1-K4: each plain PyTorch version against its
 Pallas function in interpret mode and against bmh_tpu's scan formulation,
-on the same numpy inputs.  Integer outputs are compared exactly."""
+on the same numpy inputs; K4's composed walk against its one-row-a-step
+walk, and its composed links against bmh_tpu's _compose_packed.  Integer
+outputs are compared exactly (tolerance 0)."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from bmh_tpu_torch.ops import bwt as tbwt
 from bmh_tpu_torch.ops import decode_kernels as tdk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
+from bmh_tpu_torch.utils import config as tconfig
 
 CHUNK_BITS = 512
 
@@ -124,17 +127,111 @@ def test_ibwt_plain_matches_pallas(rng):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
 
 
-def test_ibwt_cursors_match_jax(rng):
-    """Several cursors per block (Nmax > stride): the port's LF¹ walk
-    against bmh_tpu's bwt_inverse_cursors (which walks LF² at this size)."""
-    nmax, b = 16384, 3
-    _, _, ns, lasts, shifts, cpss = _lf_tables(rng, nmax, b)
-    stride = jbwt.CURSOR_STRIDE
-    got = tbwt.bwt_inverse_cursors(
-        torch.from_numpy(np.stack(lasts)), torch.tensor(shifts),
-        torch.from_numpy(np.stack(cpss).astype(np.int64)), torch.tensor(ns), stride)
+def _bwt_rows(rng, nmax, b):
+    """Aperiodic blocks a little shorter than nmax (so pad rows exist) and
+    their BWT by the port's forward: (data, last, shift, cps, n) tensors."""
+    data = torch.zeros((b, nmax), dtype=torch.uint8)
+    ns = []
     for i in range(b):
-        want = np.asarray(jax.jit(jbwt.bwt_inverse_cursors)(
-            jnp.asarray(lasts[i]), jnp.int32(shifts[i]), jnp.asarray(cpss[i]),
-            jnp.int32(ns[i])))
+        n = nmax - 7 * i - 3
+        data[i, :n] = torch.from_numpy(rng.integers(0, 5, n).astype(np.uint8))
+        ns.append(n)
+    n = torch.tensor(ns)
+    last, shift, cps, aper = tbwt.bwt_forward_cp(data, n, jbwt.CURSOR_STRIDE)
+    assert bool(aper.all())
+    return data, last, shift, cps, n
+
+
+@pytest.mark.parametrize("lf2", [True, False], ids=["lf2", "lf1"])
+@pytest.mark.parametrize("log_nmax,b", [(14, 3), (16, 2), (17, 1)])
+def test_ibwt_cursors_match_jax(monkeypatch, log_nmax, b, lf2):
+    """bwt_inverse_cursors against bmh_tpu's, un-jitted so that it reads the
+    knob this test sets: with lf2 on the port walks 16-step row links,
+    bmh_tpu LF² at 2^14 and 2^16 and its LF¹ scan at 2^17."""
+    nmax = 1 << log_nmax
+    monkeypatch.setattr(tconfig.DEFAULT, "lf2", lf2)
+    monkeypatch.setattr(jbwt._config_mod.DEFAULT, "lf2", lf2)
+    steps = min(nmax, jbwt.CURSOR_STRIDE)
+    assert tbwt._walk_hop(steps) == (ibwt_kernel.HOP if lf2 else 1)
+    data, last, shift, cps, n = _bwt_rows(np.random.default_rng(log_nmax), nmax, b)
+    got = tbwt.bwt_inverse_cursors(last, shift, cps, n, jbwt.CURSOR_STRIDE)
+    assert torch.equal(got, data)
+    for i in range(b):
+        want = np.asarray(jbwt.bwt_inverse_cursors(
+            jnp.asarray(last[i].numpy()), jnp.int32(int(shift[i])),
+            jnp.asarray(cps[i].numpy().astype(np.int32)), jnp.int32(int(n[i]))))
         np.testing.assert_array_equal(got[i].numpy(), want)
+
+
+def _random_table(rng, b, nmax, n):
+    """(B, Nmax) packed LF tables in int32 storage: a random permutation of
+    n real rows with random bytes, then pad rows (byte field 256, linking
+    to themselves)."""
+    tabs = []
+    for _ in range(b):
+        real = (rng.integers(0, 256, n) << 23) | rng.permutation(n)
+        tabs.append(np.concatenate([real, (256 << 23) | np.arange(n, nmax)]))
+    return torch.from_numpy(np.stack(tabs).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("nmax,n,k,steps", [
+    (1024, 1000, 1, 1024),       # one cursor, pad rows
+    (4096, 4096, 4, 1024),       # no pad row
+    (1 << 16, (1 << 16) - 9, 16, 64),
+    (1 << 17, (1 << 17) - 50, 32, 64),
+    (512, 300, 3, 16),           # a single composed step
+    (256, 200, 2, 48),
+])
+def test_ibwt_plain_composed_equals_hop1(nmax, n, k, steps):
+    """The composed walk emits the bytes of the one-row-a-step walk, also
+    from a start clamped onto a pad row."""
+    rng = np.random.default_rng(nmax)
+    table = _random_table(rng, 2, nmax, n)
+    starts = torch.from_numpy(rng.integers(0, n, (2, k)).astype(np.int32))
+    starts[0, 0] = nmax - 1  # a pad row unless n == nmax
+    want = ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1)
+    if n < nmax:
+        assert int(want[0, 0].max()) == 0  # the pad row emits zeros forever
+    got = ibwt_kernel.ibwt_walk(table, starts, steps, ibwt_kernel.HOP)  # CPU: plain
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("steps,hop", [(6, 16), (24, 16), (1, 16), (64, 2),
+                                       (64, 4), (64, 32), (64, 0)])
+def test_ibwt_walk_refuses_other_hops(steps, hop):
+    """Only hop 1 and the composed hop exist, and the hop must divide steps."""
+    table = _random_table(np.random.default_rng(steps), 1, 256, 200)
+    starts = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="divide steps"):
+        ibwt_kernel.ibwt_walk(table, starts, steps, hop)
+    with pytest.raises(ValueError, match="divide steps"):
+        ibwt_kernel.ibwt_walk_plain(table, starts, steps, hop)
+
+
+@pytest.mark.parametrize("steps,lf2,want", [
+    (4096, True, 16), (1024, True, 16), (64, True, 16), (16, True, 16),
+    (4096, False, 1), (1024, False, 1),
+    (6, True, 1), (24, True, 1), (7, True, 1),
+])
+def test_walk_hop_follows_knob_and_steps(monkeypatch, steps, lf2, want):
+    monkeypatch.setattr(tconfig.DEFAULT, "lf2", lf2)
+    assert tbwt._walk_hop(steps) == want
+
+
+@pytest.mark.parametrize("nmax", [1024, 1 << 14, 1 << 16])
+def test_compose_plain_matches_jax_compose(nmax):
+    """The composed row links against bmh_tpu's _compose_packed (two sorts
+    there, gathers here) applied as often: its low bits are the row two
+    steps on, so four applications give the row 16 steps on."""
+    _, last, _, _, n = _bwt_rows(np.random.default_rng(nmax), nmax, 2)
+    packed = tbwt._lf_map_packed(last, n)
+    table = (packed - ((packed >> 31) << 32)).to(torch.int32)
+    got = ibwt_kernel.compose_plain(table)
+    for i in range(2):
+        jp = jbwt._lf_map_packed(jnp.asarray(last[i].numpy()), jnp.int32(int(n[i])))
+        np.testing.assert_array_equal(packed[i].numpy(), np.asarray(jp).astype(np.int64))
+        links = jp
+        for _ in range(4):
+            links = jbwt._compose_packed(links)
+        np.testing.assert_array_equal(
+            got[i].numpy(), np.asarray(links & jnp.uint32((1 << 23) - 1)).astype(np.int64))

@@ -77,6 +77,15 @@ def test_sort3_wrapper_envelope():
     assert sort_kernel.in_envelope(1 << 18) and not sort_kernel.in_envelope(1 << 17 | 1)
 
 
+@pytest.mark.parametrize("n,log_t", [(1024, 10), (2048, 11), (4096, 12),
+                                     (1 << 16, 12), (1 << 17, 12), (1 << 18, 12)])
+def test_sort3_tile_choice(n, log_t):
+    """Rows up to 2^12 are sorted as one tile (the high passes above a tile
+    need 2^13 triples of a row); longer rows in 2^12 tiles."""
+    assert sort_kernel.pick_log_tile(n) == log_t
+    assert log_t == n.bit_length() - 1 or n >= 1 << 13
+
+
 @pytest.mark.parametrize("n", [512, 2048])
 def test_stable_sort3_dispatch(knob, monkeypatch, n):
     """Knob on and n inside the envelope: the wrapper runs (its plain
