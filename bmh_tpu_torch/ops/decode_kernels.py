@@ -6,7 +6,13 @@ tensors, reading bits from the packed words; a CPU tensor runs them.
 
 Inputs: wext (wpc+1, NC) int32 holding the uint32 payload words in
 words_ext layout (ops/huffman.py), count_t (32, NC) int32 per-chunk
-per-length codeword counts, maxl the longest code length to consider.
+per-length codeword counts (counts: none below 0), maxl the longest code
+length to consider.
+
+K1's kernel decodes a codeword a turn from per-length limits that it sums
+from the counts, and walks each of a chunk's distinct decodes once; K2's
+runs the FSM a bit a step.  Both plain versions run the FSM a bit a step
+for every lane, as bmh_tpu does.
 """
 
 from __future__ import annotations
@@ -89,20 +95,37 @@ def phase_b_plain(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor
     return out
 
 
-def _check(wext, count_t, name):
+# K1 keeps a memo entry per bit position of a chunk in shared memory; the
+# kernel takes chunks up to this size, in blocks of ever fewer chunks
+# (csrc/gap_decode.cu)
+PHASE_A_MAX_CHUNK_BITS = 1 << 15
+
+
+def _check(wext, count_t, chunk_bits, maxl, name):
     if (wext.dtype != torch.int32 or count_t.dtype != torch.int32
-            or not wext.is_contiguous() or not count_t.is_contiguous()
+            or wext.dim() != 2 or not wext.is_contiguous()
+            or not count_t.is_contiguous()
             or count_t.shape != (GAPS, wext.shape[1])
             or count_t.device != wext.device):
         raise ValueError(f"{name}: needs contiguous int32 wext (wpc+1, NC) "
                          "and count_t (32, NC) on one device")
+    if (chunk_bits <= 0 or chunk_bits % 32
+            or wext.shape[0] != chunk_bits // 32 + 1):
+        raise ValueError(f"{name}: chunk_bits must be a positive multiple of "
+                         f"32 with wext of chunk_bits / 32 + 1 rows, got "
+                         f"{chunk_bits} and {wext.shape[0]} rows")
+    if not 1 <= maxl <= GAPS - 1:
+        raise ValueError(f"{name}: maxl must lie in 1..31, got {maxl}")
 
 
 def phase_a(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
             maxl: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _check(wext, count_t, chunk_bits, maxl, "phase_a")
     if not _build.on_card(wext, "phase_a"):
         return phase_a_plain(wext, count_t, chunk_bits, maxl)
-    _check(wext, count_t, "phase_a")
+    if chunk_bits > PHASE_A_MAX_CHUNK_BITS:
+        raise ValueError(f"phase_a: the kernel takes chunks of up to "
+                         f"{PHASE_A_MAX_CHUNK_BITS} bits, got {chunk_bits}")
     nc = wext.shape[1]
     cnt = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
     ex = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
@@ -119,9 +142,9 @@ def phase_a(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
 
 def phase_b(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor,
             chunk_bits: int, maxl: int) -> torch.Tensor:
+    _check(wext, count_t, chunk_bits, maxl, "phase_b")
     if not _build.on_card(wext, "phase_b"):
         return phase_b_plain(wext, count_t, entry, chunk_bits, maxl)
-    _check(wext, count_t, "phase_b")
     nc = wext.shape[1]
     if (entry.dtype != torch.int32 or entry.shape != (nc,)
             or not entry.is_contiguous() or entry.device != wext.device):

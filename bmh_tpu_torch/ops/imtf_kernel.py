@@ -2,7 +2,9 @@
 
 Replaces bmh_tpu/ops/pallas_mtf.py `imtf_chunks`.  `imtf_chunks_plain` is
 the lax.scan branch of bmh_tpu's mtf_inverse written with tensors
-(y = Q[c], then Q' = [y, Q[0..c-1], Q[c+1..]]); a CPU tensor runs it.
+(y = Q[c], then Q' = [y, Q[0..c-1], Q[c+1..]]); a CPU tensor runs it.  The
+kernel gives every chunk lane a warp that holds the lane's list in
+registers and skips the zero codes.
 """
 
 from __future__ import annotations

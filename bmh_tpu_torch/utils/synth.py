@@ -1,4 +1,5 @@
-"""Seeded synthetic input streams for the GPU smoke run and the profiler."""
+"""Seeded synthetic inputs: the stream of the GPU smoke run and the
+profiler, and kernel inputs made to hurt the designs of K1 and K3."""
 
 from __future__ import annotations
 
@@ -28,3 +29,41 @@ def smoke_input(seed: int) -> bytes:
     assert len(text) >= TEXT_BYTES, "vocabulary too short for the text size"
     rnd = rng.integers(0, 256, RANDOM_BYTES, dtype=np.uint8).tobytes()
     return text[:TEXT_BYTES] + rnd
+
+
+def phase_a_hostile_cases(seed: int, nc: int) -> list[tuple]:
+    """Inputs made to hurt kernel K1's merge of a chunk's 32 decodes, as
+    (name, wext (wpc+1, nc) int32, count_t (32, nc) int32, chunk_bits, maxl):
+    a table of zeros under which no two decodes meet (each resets every 32
+    bits); a table with maxl = 8 whose short codes leave most 8-bit patterns
+    to the overflow reset, with counts above maxl that must be ignored; and
+    a plausible table at the two shortest chunks, where every decode ends
+    inside the lookahead word.  Words are random, in words_ext layout."""
+    rng = np.random.default_rng(seed)
+    plausible = np.zeros(32, np.int32)
+    plausible[[2, 3, 4, 6, 9]] = (1, 2, 3, 10, 20)
+    short = np.zeros(32, np.int32)
+    short[[5, 8, 12]] = (1, 3, 5)
+    cases = []
+    for name, counts, chunk_bits, maxl in (
+            ("no_merge", np.zeros(32, np.int32), 512, 31),
+            ("overflow_maxl8", short, 512, 8),
+            ("chunk_bits_32", plausible, 32, 16),
+            ("chunk_bits_64", plausible, 64, 16)):
+        wpc = chunk_bits // 32
+        words = rng.integers(0, 1 << 32, (nc, wpc), dtype=np.uint64).astype(np.uint32)
+        nxt = np.concatenate([words[1:, :1], np.zeros((1, 1), np.uint32)])
+        wext = np.ascontiguousarray(np.concatenate([words, nxt], axis=1).T)
+        count_t = np.repeat(counts[:, None], nc, axis=1)
+        cases.append((name, wext.view(np.int32), count_t, chunk_bits, maxl))
+    return cases
+
+
+def imtf_hostile_cases(seed: int, m: int, k: int) -> list[tuple]:
+    """Codes made to hurt kernel K3's batches, as (name, codes (m, k)
+    int32): all zero (no step in any batch), all 255 (every step moves the
+    whole list) and uniformly random (every step, every distance)."""
+    rng = np.random.default_rng(seed)
+    return [("zeros", np.zeros((m, k), np.int32)),
+            ("all_255", np.full((m, k), 255, np.int32)),
+            ("random", rng.integers(0, 256, (m, k)).astype(np.int32))]

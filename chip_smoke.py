@@ -15,7 +15,12 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               one-row-a-step walk, each timed whole and as compose and walk
               parts.  K5 timed per kind
               of launch and, beside torch.sort (library_ms), at the sparse
-              sets' one-row shapes; the casts around it timed too
+              sets' one-row shapes; the casts around it timed too.  K1 and
+              K3 also on inputs made to hurt their designs: K1 under a
+              table that lets no two of a chunk's decodes meet, under one
+              with maxl = 8 that forces overflow resets, and at 32- and
+              64-bit chunks; K3 on all-zero, all-255 and random codes.
+              bound_ms counts the least work any implementation needs
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
      trip     decompress at 128 KiB on the card, with default knobs, with
               BMH_PALLAS_SORT on and with BMH_LF2 off: bit-exact, container
@@ -238,6 +243,48 @@ def walk_modes(bt, data: bytes, cap: dict, card: str) -> None:
                   flush=True)
 
 
+def hostile_kernel_inputs(card: str, shape: tuple[int, int]) -> None:
+    """K1 and K3 against their plain versions on inputs made to hurt their
+    designs (utils/synth.py): K1 where no two of a chunk's decodes meet,
+    where overflow resets at maxl = 8 make the boundaries, and at 32- and
+    64-bit chunks; K3 on all-zero, all-255 and random codes.  1003 chunks
+    or lanes: no multiple of a block's.  Then K3's time on codes that are
+    all steps, at `shape` (the main path's) and narrower."""
+    from bmh_tpu_torch.ops import decode_kernels as dk
+    from bmh_tpu_torch.ops import imtf_kernel
+    from bmh_tpu_torch.utils import synth
+
+    for name, wext, count_t, chunk_bits, maxl in synth.phase_a_hostile_cases(0, 1003):
+        args = (torch.from_numpy(wext).cuda(), torch.from_numpy(count_t).cuda(),
+                chunk_bits, maxl)
+        got, want = dk.phase_a(*args), dk.phase_a_plain(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"phase_a disagrees with its plain version on {name}")
+        print(f"[kernels] phase_a on hostile input {name} {list(wext.shape)}, "
+              f"chunk_bits {chunk_bits}, maxl {maxl}: equal=True "
+              f"ms={cuda_ms(lambda: dk.phase_a(*args), 5):.4f}", flush=True)
+    for name, codes in synth.imtf_hostile_cases(0, 300, 1003):
+        codes = torch.from_numpy(codes).cuda()
+        got, want = imtf_kernel.imtf_chunks(codes), imtf_kernel.imtf_chunks_plain(codes)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"imtf_chunks disagrees with its plain version on {name}")
+        print(f"[kernels] imtf_chunks on hostile input {name} {list(codes.shape)}: "
+              f"equal=True ms={cuda_ms(lambda: imtf_kernel.imtf_chunks(codes), 5):.4f}",
+              flush=True)
+    # K3 where every code is a step: at the main path's shape (about 8
+    # lanes to a warp scheduler), and with one lane to a scheduler
+    m, k = shape
+    schedulers = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    for lanes in (k, schedulers):
+        codes = torch.randint(1, 256, (m, lanes), dtype=torch.int32, device="cuda")
+        ms = cuda_ms(lambda: imtf_kernel.imtf_chunks(codes), 20)
+        print(f"[kernels] imtf_chunks on non-zero random codes {[m, lanes]}, "
+              f"{card}: ms={ms:.4f}, a step of a lane {ms * 1e6 / m:.1f} ns",
+              flush=True)
+
+
 def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
     from bmh_tpu_torch.ops import decode_kernels as dk
     from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
@@ -249,6 +296,7 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
     k5 = sorts[(32, BLOCK)]
     sort_side_shapes(sorts, card)
     walk_modes(bt, head, cap, card)
+    hostile_kernel_inputs(card, tuple(cap["imtf_chunks"][0].shape))
     wext, count_t, chunk_bits, maxl = cap["phase_a"]
     wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
     (codes_tm,) = cap["imtf_chunks"]
@@ -257,16 +305,21 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
     fsm_steps = chunk_bits + 32
 
     cases = []
-    # K1: ops counted from this run's exits (a lane stops at its exit gap)
-    cnt, ex = dk.phase_a(wext, count_t, chunk_bits, maxl)
+    # K1: the least any implementation needs is one FSM step (12 integer
+    # operations) per bit of each chunk.  Beside it, what walking every
+    # (gap, chunk) decode to its exit takes, as the bound was counted while
+    # the kernel did that.
+    _, ex = dk.phase_a(wext, count_t, chunk_bits, maxl)
     gaps = torch.arange(32, device=wext.device)[:, None]
     k1_steps = int((chunk_bits + ex.to(torch.int64) - gaps).clamp(min=0).sum())
+    k1_ops = 12 * fsm_steps * nc
     cases.append(dict(
         name="gap_decode_phase_a", source="bmh_tpu_torch/csrc/gap_decode.cu",
         replaces="bmh_tpu/ops/pallas_decode.py:179",
         kernel=lambda: dk.phase_a(wext, count_t, chunk_bits, maxl),
         plain=lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl),
-        bytes=nbytes(wext, count_t) + 2 * 4 * 32 * nc, ops=12 * k1_steps, reps=20))
+        bytes=nbytes(wext, count_t) + 2 * 4 * 32 * nc, ops=k1_ops, reps=20,
+        chain=fsm_steps, chain_unit="bits of a chunk (one thread walks them)"))
     cases.append(dict(
         name="gap_decode_phase_b", source="bmh_tpu_torch/csrc/gap_decode.cu",
         replaces="bmh_tpu/ops/pallas_decode.py:207",
@@ -274,14 +327,30 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         plain=lambda: dk.phase_b_plain(wext_b, count_b, entry, cb_b, maxl_b),
         bytes=nbytes(wext_b, count_b, entry) + 4 * fsm_steps * nc,
         ops=14 * fsm_steps * nc, reps=20))
+    # K3: the least is a constant per code (look up, move, store: 4).
+    # Beside it, the serial shift's count (the sum of the codes on top), as
+    # the bound was counted while the kernel shifted entry by entry.
     m, k = codes_tm.shape
-    k3_ops = int((codes_tm.to(torch.int64) & 255).sum()) + 4 * m * k
+    k3_ops = 4 * m * k
+    k3_shift = int((codes_tm.to(torch.int64) & 255).sum())
+    k3_lane_steps = ((codes_tm & 255) != 0).sum(0)
+    k3_steps, k3_dense = int(k3_lane_steps.sum()), int(k3_lane_steps.max())
     cases.append(dict(
         name="imtf_chunks", source="bmh_tpu_torch/csrc/imtf.cu",
         replaces="bmh_tpu/ops/pallas_mtf.py:53",
         kernel=lambda: imtf_kernel.imtf_chunks(codes_tm),
         plain=lambda: imtf_kernel.imtf_chunks_plain(codes_tm),
-        bytes=2 * nbytes(codes_tm) + 4 * 256 * k, ops=k3_ops, reps=20))
+        bytes=2 * nbytes(codes_tm) + 4 * 256 * k, ops=k3_ops, reps=20,
+        chain=k3_dense, chain_unit="non-zero codes of the densest lane"))
+    print(f"[kernels] operations counted for the bounds, least work / as the "
+          f"earlier kernels worked: phase_a {k1_ops} / {12 * k1_steps} "
+          f"({k1_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
+          f"{12 * k1_steps / PEAK_OPS_PER_S * 1e3:.4f} ms), imtf_chunks {k3_ops} / "
+          f"{k3_ops + k3_shift} ({k3_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
+          f"{(k3_ops + k3_shift) / PEAK_OPS_PER_S * 1e3:.4f} ms); "
+          f"{k3_steps} of imtf_chunks' {m * k} codes are non-zero, "
+          f"{k3_dense} of {m} in the densest lane, "
+          f"{int(k3_lane_steps.median())} in the median lane", flush=True)
     b, kc = starts.shape
     cases.append(dict(
         name="ibwt_walk", source="bmh_tpu_torch/csrc/ibwt_walk.cu",
@@ -325,6 +394,10 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         })
         print(f"[kernels] {c['name']}: equal={equal} ms={ms:.4f} "
               f"plain_ms={plain_ms:.2f} library_ms={library_ms}", flush=True)
+        if "chain" in c:
+            print(f"[kernels] {c['name']}: a thread's dependent chain is "
+                  f"{c['chain']:.0f} {c['chain_unit']}, ms over them "
+                  f"{ms * 1e6 / c['chain']:.1f} ns", flush=True)
         require(equal, f"{c['name']} disagrees with its plain version "
                        f"(max abs err {err})")
     return rows

@@ -16,7 +16,7 @@ from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.ops import decode_kernels as dk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
-from bmh_tpu_torch.utils import config
+from bmh_tpu_torch.utils import config, synth
 
 pytestmark = pytest.mark.gpu
 
@@ -71,6 +71,49 @@ def test_imtf_kernel_matches_plain(cuda):
     codes[:, ::2] %= 4
     ys, q = imtf_kernel.imtf_chunks(codes.to(cuda))
     ys_p, q_p = imtf_kernel.imtf_chunks_plain(codes.to(cuda))
+    assert torch.equal(ys, ys_p) and torch.equal(q, q_p)
+
+
+@pytest.mark.parametrize("case", range(4), ids=["no_merge", "overflow_maxl8",
+                                               "chunk_bits_32", "chunk_bits_64"])
+def test_phase_a_kernel_matches_plain_on_hostile_tables(cuda, case):
+    """K1 where its merge of a chunk's decodes finds nothing to merge, where
+    overflow resets make the boundaries, and at the shortest chunks; the
+    chunk count is no multiple of a block's."""
+    _, wext, count_t, chunk_bits, maxl = synth.phase_a_hostile_cases(5, 1003)[case]
+    wext, count_t = torch.from_numpy(wext).to(cuda), torch.from_numpy(count_t).to(cuda)
+    _build.reset_launches()
+    cnt, ex = dk.phase_a(wext, count_t, chunk_bits, maxl)
+    assert _build.LAUNCHES["gap_decode_phase_a"] == 1
+    cnt_p, ex_p = dk.phase_a_plain(wext, count_t, chunk_bits, maxl)
+    assert torch.equal(cnt, cnt_p) and torch.equal(ex, ex_p)
+
+
+@pytest.mark.parametrize("chunk_bits", [2016, 2048, 4096])
+def test_phase_a_kernel_long_chunks(cuda, chunk_bits):
+    """Both widths of K1's memo entry (16 bits up to 2016-bit chunks, 32
+    above) and blocks of fewer chunks than a warp."""
+    g = torch.Generator(device="cpu").manual_seed(chunk_bits)
+    nc = 77
+    wext = torch.randint(-2**31, 2**31, (chunk_bits // 32 + 1, nc), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(cuda)
+    counts = torch.zeros(32, dtype=torch.int32)
+    counts[[1, 3, 4, 7]] = torch.tensor([1, 1, 2, 9], dtype=torch.int32)
+    count_t = counts[:, None].repeat(1, nc).to(cuda)
+    cnt, ex = dk.phase_a(wext, count_t, chunk_bits, 8)
+    cnt_p, ex_p = dk.phase_a_plain(wext, count_t, chunk_bits, 8)
+    assert torch.equal(cnt, cnt_p) and torch.equal(ex, ex_p)
+
+
+@pytest.mark.parametrize("case", range(3), ids=["zeros", "all_255", "random"])
+def test_imtf_kernel_matches_plain_on_hostile_codes(cuda, case):
+    """K3 on batches with no step, with every step moving the whole list and
+    with every step at every distance; the lane count is no multiple of a
+    block's lanes, the length no multiple of a batch."""
+    _, codes = synth.imtf_hostile_cases(6, 300, 1003)[case]
+    codes = torch.from_numpy(codes).to(cuda)
+    ys, q = imtf_kernel.imtf_chunks(codes)
+    ys_p, q_p = imtf_kernel.imtf_chunks_plain(codes)
     assert torch.equal(ys, ys_p) and torch.equal(q, q_p)
 
 
@@ -177,6 +220,18 @@ def test_wrappers_reject_bad_inputs(cuda):
             ibwt_kernel.ibwt_walk(tab, st, 8, hop)
     with pytest.raises(ValueError):
         ibwt_kernel.ibwt_walk(tab.long(), st, 8)
+    wext = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    count_t = torch.zeros((32, 4), dtype=torch.int32, device=cuda)
+    entry = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for chunk_bits, maxl in ((0, 8), (48, 8), (32, 8), (128, 8), (64, 0), (64, 32)):
+        with pytest.raises(ValueError):
+            dk.phase_a(wext, count_t, chunk_bits, maxl)
+        with pytest.raises(ValueError):
+            dk.phase_b(wext, count_t, entry, chunk_bits, maxl)
+    long_bits = 2 * dk.PHASE_A_MAX_CHUNK_BITS  # more than K1's memo holds
+    with pytest.raises(ValueError, match="up to"):
+        dk.phase_a(torch.zeros((long_bits // 32 + 1, 1), dtype=torch.int32, device=cuda),
+                   count_t[:, :1].contiguous(), long_bits, 8)
     bad = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         sort_kernel.sort3(bad, bad, bad[:, ::2].contiguous())

@@ -21,6 +21,7 @@ from bmh_tpu_torch.ops import decode_kernels as tdk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
 from bmh_tpu_torch.utils import config as tconfig
+from bmh_tpu_torch.utils import synth
 
 CHUNK_BITS = 512
 
@@ -91,6 +92,57 @@ def test_imtf_plain_matches_pallas(m, alphabet):
     ys_t, q_t = imtf_kernel.imtf_chunks_plain(torch.from_numpy(codes))
     np.testing.assert_array_equal(ys_t.numpy(), np.asarray(ys_p))
     np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_p))
+
+
+@pytest.mark.parametrize("case", range(4), ids=["no_merge", "overflow_maxl8",
+                                               "chunk_bits_32", "chunk_bits_64"])
+def test_phase_a_plain_matches_pallas_on_hostile_tables(case):
+    """The inputs made to hurt K1's merge of a chunk's decodes (no two
+    decodes meet; overflow resets at maxl = 8; the shortest chunks)."""
+    name, wext, count_t, chunk_bits, maxl = synth.phase_a_hostile_cases(5, 24)[case]
+    cnt_t, ex_t = tdk.phase_a(torch.from_numpy(wext), torch.from_numpy(count_t),
+                              chunk_bits, maxl)  # CPU: plain
+    cnt_p, ex_p = PD.phase_a(jnp.asarray(wext.view(np.uint32)), jnp.asarray(count_t),
+                             chunk_bits=chunk_bits, maxl=maxl, interpret=True)
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_p))
+    np.testing.assert_array_equal(ex_t.numpy(), np.asarray(ex_p))
+    if name == "no_merge":  # nothing completes, nothing exits
+        assert int(cnt_t.max()) == 0 and int(ex_t.max()) == 0
+    if name == "overflow_maxl8":  # the counts above maxl were ignored
+        wide, _ = tdk.phase_a_plain(torch.from_numpy(wext), torch.from_numpy(count_t),
+                                    chunk_bits, 16)
+        assert not torch.equal(wide, cnt_t)
+
+
+@pytest.mark.parametrize("case", range(3), ids=["zeros", "all_255", "random"])
+def test_imtf_plain_matches_pallas_on_hostile_codes(case):
+    """The codes made to hurt K3's batches, at a lane count no multiple of
+    a block's lanes and a length no multiple of a batch; the Pallas side
+    alone is padded to its tile."""
+    m, k = 70, 13
+    _, codes = synth.imtf_hostile_cases(6, m, k)[case]
+    padded = np.zeros((m, PM.TILE), np.int32)
+    padded[:, :k] = codes
+    ys_p, q_p = PM.imtf_chunks(jnp.asarray(padded), interpret=True)
+    ys_t, q_t = imtf_kernel.imtf_chunks(torch.from_numpy(codes))  # CPU: plain
+    np.testing.assert_array_equal(ys_t.numpy(), np.asarray(ys_p)[:, :k])
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_p)[:, :k])
+
+
+@pytest.mark.parametrize("chunk_bits,rows,maxl", [
+    (0, 1, 8), (-32, 0, 8), (48, 2, 8), (64, 2, 8), (64, 4, 8),
+    (64, 3, 0), (64, 3, 32),
+], ids=["zero_bits", "negative_bits", "bits_not_32n", "rows_short", "rows_long",
+        "maxl_0", "maxl_32"])
+def test_gap_decode_wrappers_reject_bad_chunks_on_cpu(chunk_bits, rows, maxl):
+    """chunk_bits and maxl index the kernels' shared memory and wext's rows:
+    the wrappers refuse what does not fit before either route runs."""
+    wext = torch.zeros((rows, 4), dtype=torch.int32)
+    count_t = torch.zeros((32, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunk_bits|maxl"):
+        tdk.phase_a(wext, count_t, chunk_bits, maxl)
+    with pytest.raises(ValueError, match="chunk_bits|maxl"):
+        tdk.phase_b(wext, count_t, torch.zeros(4, dtype=torch.int32), chunk_bits, maxl)
 
 
 def _lf_tables(rng, nmax, b):
