@@ -9,10 +9,14 @@ words_ext layout (ops/huffman.py), count_t (32, NC) int32 per-chunk
 per-length codeword counts (counts: none below 0), maxl the longest code
 length to consider.
 
-K1's kernel decodes a codeword a turn from per-length limits that it sums
-from the counts, and walks each of a chunk's distinct decodes once; K2's
-runs the FSM a bit a step.  Both plain versions run the FSM a bit a step
-for every lane, as bmh_tpu does.
+Both kernels decode a codeword a turn from per-length limits that they sum
+from the counts.  K1's walks each of a chunk's distinct decodes once, in
+shared memory or, for chunks too long for it, in a global scratch buffer
+that its wrapper allocates; K2's gathers each chunk's indices in windows
+of steps that a warp stores 16 bytes a lane, into rows padded to a
+multiple of 32 chunks (the wrapper returns the (steps, NC) view).  Both
+take any chunk size that `_check` accepts.  Both plain versions run the
+FSM a bit a step for every lane, as bmh_tpu does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from . import _build
 
 GAPS = 32
 AMAX = 256  # canonical-index clip ceiling (257-symbol RLE0 alphabet)
+ROW_ALIGN = 32  # K2's output rows: chunks, a multiple of a warp's
 _SRC = "gap_decode.cu"
 
 
@@ -95,12 +100,6 @@ def phase_b_plain(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor
     return out
 
 
-# K1 keeps a memo entry per bit position of a chunk in shared memory; the
-# kernel takes chunks up to this size, in blocks of ever fewer chunks
-# (csrc/gap_decode.cu)
-PHASE_A_MAX_CHUNK_BITS = 1 << 15
-
-
 def _check(wext, count_t, chunk_bits, maxl, name):
     if (wext.dtype != torch.int32 or count_t.dtype != torch.int32
             or wext.dim() != 2 or not wext.is_contiguous()
@@ -123,18 +122,21 @@ def phase_a(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
     _check(wext, count_t, chunk_bits, maxl, "phase_a")
     if not _build.on_card(wext, "phase_a"):
         return phase_a_plain(wext, count_t, chunk_bits, maxl)
-    if chunk_bits > PHASE_A_MAX_CHUNK_BITS:
-        raise ValueError(f"phase_a: the kernel takes chunks of up to "
-                         f"{PHASE_A_MAX_CHUNK_BITS} bits, got {chunk_bits}")
     nc = wext.shape[1]
     cnt = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
     ex = torch.empty((GAPS, nc), dtype=torch.int32, device=wext.device)
-    fn = _build.lib(_SRC).bmh_phase_a
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib = _build.lib(_SRC)
+    size = lib.bmh_phase_a_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 2
+    size.restype = ctypes.c_size_t
+    # K1's arrays where a chunk's do not fit in shared memory (else empty)
+    scratch = torch.empty(size(nc, chunk_bits), dtype=torch.uint8, device=wext.device)
+    fn = lib.bmh_phase_a
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.LAUNCHES["gap_decode_phase_a"] += 1
     _build.check(fn(wext.data_ptr(), count_t.data_ptr(), cnt.data_ptr(),
-                    ex.data_ptr(), nc, chunk_bits, maxl,
+                    ex.data_ptr(), scratch.data_ptr(), nc, chunk_bits, maxl,
                     torch.cuda.current_stream(wext.device).cuda_stream),
                  "gap_decode_phase_a")
     return cnt, ex
@@ -149,13 +151,16 @@ def phase_b(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor,
     if (entry.dtype != torch.int32 or entry.shape != (nc,)
             or not entry.is_contiguous() or entry.device != wext.device):
         raise ValueError("phase_b: needs contiguous int32 (NC,) entry gaps")
-    out = torch.empty((chunk_bits + GAPS, nc), dtype=torch.int32, device=wext.device)
+    # rows padded to whole warps of chunks: each warp's part of a row is one
+    # aligned 128-byte line; the result is the (steps, NC) view
+    ld = -(-nc // ROW_ALIGN) * ROW_ALIGN
+    out = torch.empty((chunk_bits + GAPS, ld), dtype=torch.int32, device=wext.device)
     fn = _build.lib(_SRC).bmh_phase_b
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.LAUNCHES["gap_decode_phase_b"] += 1
     _build.check(fn(wext.data_ptr(), count_t.data_ptr(), entry.data_ptr(),
-                    out.data_ptr(), nc, chunk_bits, maxl,
+                    out.data_ptr(), nc, ld, chunk_bits, maxl,
                     torch.cuda.current_stream(wext.device).cuda_stream),
                  "gap_decode_phase_b")
-    return out
+    return out[:, :nc]

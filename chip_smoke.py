@@ -19,8 +19,11 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               K3 also on inputs made to hurt their designs: K1 under a
               table that lets no two of a chunk's decodes meet, under one
               with maxl = 8 that forces overflow resets, and at 32- and
-              64-bit chunks; K3 on all-zero, all-255 and random codes.
-              bound_ms counts the least work any implementation needs
+              64-bit chunks; K2 where the clip fires, under the all-zero
+              table, at maxl = 8 with longer counts, on codes of up to 31
+              bits, under a table per chunk, at 32-, 64- and 544-bit
+              chunks; K3 on all-zero, all-255 and random codes.  bound_ms
+              counts the least work any implementation needs
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
      trip     decompress at 128 KiB on the card, with default knobs, with
               BMH_PALLAS_SORT on and with BMH_LF2 off: bit-exact, container
@@ -29,7 +32,9 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               runs, and compress MB/s of the sparse/adaptive against the
               full-rounds program; peak memory.  Then the stream's first
               4 MiB at 64 KiB blocks with BMH_LF2 on and off (the composed
-              and the one-row walk): bit-exact, one container
+              and the one-row walk): bit-exact, one container.  Then K1
+              and K2 at 32800-bit chunks against their plain versions, and
+              the stream's first MiB decoded at 65536-bit chunks: bit-exact
   5. routes   a 512 KiB tiled random 1024-byte motif (pathological batch,
               periodic blocks) and b"\x00" * 3 (single symbol) round-trip
               on the card, containers equal to the CPU run's
@@ -59,6 +64,9 @@ BLOCK = 1 << 17
 # bandwidth, and the non-tensor-core 32-bit rate used for integer work
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# clock cycles of the sleep kernel that cuda_ms queues its calls behind
+# (about 10 ms)
+HOLD_CYCLES = 20_000_000
 
 
 def card_line() -> str:
@@ -74,10 +82,15 @@ def require(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` warm calls, by CUDA events."""
+    """Mean ms per call over `reps` warm calls, by CUDA events.  A sleep
+    kernel holds the stream while the host queues the calls, so that the
+    events time the card's work and not the wrappers' launch overhead
+    (where the host is the slower, as in the plain versions' Python loops,
+    they time the host)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -244,12 +257,15 @@ def walk_modes(bt, data: bytes, cap: dict, card: str) -> None:
 
 
 def hostile_kernel_inputs(card: str, shape: tuple[int, int]) -> None:
-    """K1 and K3 against their plain versions on inputs made to hurt their
-    designs (utils/synth.py): K1 where no two of a chunk's decodes meet,
-    where overflow resets at maxl = 8 make the boundaries, and at 32- and
-    64-bit chunks; K3 on all-zero, all-255 and random codes.  1003 chunks
-    or lanes: no multiple of a block's.  Then K3's time on codes that are
-    all steps, at `shape` (the main path's) and narrower."""
+    """K1, K2 and K3 against their plain versions on inputs made to hurt
+    their designs (utils/synth.py): K1 where no two of a chunk's decodes
+    meet, where overflow resets at maxl = 8 make the boundaries, and at 32-
+    and 64-bit chunks; K2 where the clip fires, under the all-zero table, at
+    maxl = 8 with longer counts, on codes of up to 31 bits, under a table
+    per chunk, at 32-, 64- and 544-bit chunks; K3 on all-zero, all-255 and
+    random codes.  1003 chunks or lanes: no multiple of a block's.  Then
+    K3's time on codes that are all steps, at `shape` (the main path's) and
+    narrower."""
     from bmh_tpu_torch.ops import decode_kernels as dk
     from bmh_tpu_torch.ops import imtf_kernel
     from bmh_tpu_torch.utils import synth
@@ -264,6 +280,15 @@ def hostile_kernel_inputs(card: str, shape: tuple[int, int]) -> None:
         print(f"[kernels] phase_a on hostile input {name} {list(wext.shape)}, "
               f"chunk_bits {chunk_bits}, maxl {maxl}: equal=True "
               f"ms={cuda_ms(lambda: dk.phase_a(*args), 5):.4f}", flush=True)
+    for name, *arrays, chunk_bits, maxl in synth.phase_b_hostile_cases(0, 1003):
+        args = (*(torch.from_numpy(a).cuda() for a in arrays), chunk_bits, maxl)
+        got, want = dk.phase_b(*args), dk.phase_b_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"phase_b disagrees with its plain version on {name}")
+        print(f"[kernels] phase_b on hostile input {name} {list(arrays[0].shape)}, "
+              f"chunk_bits {chunk_bits}, maxl {maxl}: equal=True "
+              f"ms={cuda_ms(lambda: dk.phase_b(*args), 5):.4f}, codewords of the "
+              f"longest chunk {int((want >= 0).sum(0).max())}", flush=True)
     for name, codes in synth.imtf_hostile_cases(0, 300, 1003):
         codes = torch.from_numpy(codes).cuda()
         got, want = imtf_kernel.imtf_chunks(codes), imtf_kernel.imtf_chunks_plain(codes)
@@ -320,13 +345,18 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         plain=lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl),
         bytes=nbytes(wext, count_t) + 2 * 4 * 32 * nc, ops=k1_ops, reps=20,
         chain=fsm_steps, chain_unit="bits of a chunk (one thread walks them)"))
+    # K2: the least is the bytes, its output above all.  Its chain is a
+    # codeword a turn: the call ends with the chunk that completes the most.
+    k2_words = int((dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b) >= 0).sum(0).max())
     cases.append(dict(
         name="gap_decode_phase_b", source="bmh_tpu_torch/csrc/gap_decode.cu",
         replaces="bmh_tpu/ops/pallas_decode.py:207",
         kernel=lambda: dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b),
         plain=lambda: dk.phase_b_plain(wext_b, count_b, entry, cb_b, maxl_b),
         bytes=nbytes(wext_b, count_b, entry) + 4 * fsm_steps * nc,
-        ops=14 * fsm_steps * nc, reps=20))
+        ops=14 * fsm_steps * nc, reps=20,
+        chain=k2_words, chain_unit="codewords of the longest chunk (one thread decodes them)",
+        fill=lambda: torch.full((fsm_steps, nc), -1, dtype=torch.int32, device="cuda")))
     # K3: the least is a constant per code (look up, move, store: 4).
     # Beside it, the serial shift's count (the sum of the codes on top), as
     # the bound was counted while the kernel shifted entry by entry.
@@ -398,9 +428,67 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
             print(f"[kernels] {c['name']}: a thread's dependent chain is "
                   f"{c['chain']:.0f} {c['chain_unit']}, ms over them "
                   f"{ms * 1e6 / c['chain']:.1f} ns", flush=True)
+        if "fill" in c:  # the least any kernel writing this output takes here
+            print(f"[kernels] {c['name']}: a fill of its output's bytes "
+                  f"(torch.full) ms={cuda_ms(c['fill'], c['reps']):.4f}", flush=True)
         require(equal, f"{c['name']} disagrees with its plain version "
                        f"(max abs err {err})")
     return rows
+
+
+def long_chunks(bt, data: bytes, card: str) -> None:
+    """Chunk sizes past the 32768 bits that K1 once refused: K1 and K2 at
+    32800 bits (K1's memo one chunk a block in shared memory) on 24 chunks
+    of random words against their plain versions; then the stream's first
+    MiB decoded at 65536-bit chunks (K1's memo in its global scratch),
+    which must give back its bytes, and both kernels timed at the shapes
+    that decode gave them."""
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.ops import decode_kernels as dk
+    from bmh_tpu_torch.utils import config
+
+    g = torch.Generator(device="cuda").manual_seed(32800)
+    nc, chunk_bits, maxl = 24, 32800, 16
+    wext = torch.randint(-2**31, 2**31, (chunk_bits // 32 + 1, nc), generator=g,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    counts = torch.zeros(32, dtype=torch.int32, device="cuda")
+    counts[[2, 3, 4, 6, 9]] = torch.tensor([1, 2, 3, 10, 20], dtype=torch.int32,
+                                           device="cuda")
+    count_t = counts[:, None].repeat(1, nc).contiguous()
+    entry = torch.randint(0, 32, (nc,), generator=g, device="cuda", dtype=torch.int32)
+    got, want = dk.phase_a(wext, count_t, chunk_bits, maxl), \
+        dk.phase_a_plain(wext, count_t, chunk_bits, maxl)
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(got, want)),
+            f"phase_a disagrees with its plain version at {chunk_bits}-bit chunks")
+    got = dk.phase_b(wext, count_t, entry, chunk_bits, maxl)
+    require(torch.equal(got, dk.phase_b_plain(wext, count_t, entry, chunk_bits, maxl)),
+            f"phase_b disagrees with its plain version at {chunk_bits}-bit chunks")
+    print(f"[long] phase_a and phase_b at {chunk_bits}-bit chunks, wext "
+          f"{list(wext.shape)}, {card}: equal=True, phase_a "
+          f"ms={cuda_ms(lambda: dk.phase_a(wext, count_t, chunk_bits, maxl), 5):.4f}, "
+          f"phase_b ms={cuda_ms(lambda: dk.phase_b(wext, count_t, entry, chunk_bits, maxl), 5):.4f}",
+          flush=True)
+
+    part = data[: 1 << 20]
+    blob = bt.compress_bytes(part, block_size=BLOCK, device="cuda")
+    default_bits = config.DEFAULT.decode_chunk_bits
+    config.DEFAULT.decode_chunk_bits = 65536
+    try:
+        cap = capture_kernel_inputs(bt, blob)
+        _build.reset_launches()
+        out = bt.decompress_bytes(blob, device="cuda")
+        launches = dict(_build.LAUNCHES)
+    finally:
+        config.DEFAULT.decode_chunk_bits = default_bits
+    require(out == part, "the round trip at 65536-bit decode chunks is not bit-exact")
+    require(launches["gap_decode_phase_a"] > 0 and launches["gap_decode_phase_b"] > 0,
+            f"the 65536-bit decode did not launch K1 and K2: {launches}")
+    a_args, b_args = cap["phase_a"], cap["phase_b"]
+    print(f"[long] {len(part)} bytes decoded at 65536-bit chunks, bit-exact, "
+          f"launches {launches}; wext {list(a_args[0].shape)}, {card}: phase_a "
+          f"ms={cuda_ms(lambda: dk.phase_a(*a_args), 3):.4f}, phase_b "
+          f"ms={cuda_ms(lambda: dk.phase_b(*b_args), 3):.4f}", flush=True)
 
 
 def program_rates(bt, data: bytes, card: str) -> None:
@@ -558,6 +646,9 @@ def main() -> None:
               flush=True)
     require(blobs64[True] == blobs64[False],
             "BMH_LF2 changed the 64 KiB-block container")
+
+    # long decode chunks: K1 and K2 past 32768 bits, a 65536-bit round trip
+    long_chunks(bt, data, card)
 
     # 5. routes: pathological + periodic blocks, and a single-symbol block
     rng = np.random.default_rng(args.seed)

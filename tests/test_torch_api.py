@@ -166,3 +166,17 @@ def test_empty_and_tiny_roundtrip():
         blob = bt.compress_bytes(data, device="cpu")
         assert blob == bmh_tpu.compress_bytes(data)
         assert bt.decompress_bytes(blob, device="cpu") == data
+
+
+def test_decode_chunk_bits_65536_matches_bmh_tpu(monkeypatch):
+    """decode_chunk_bits is a decoder knob, not a container field: at
+    65536-bit chunks (each block's payload in one chunk, the lookahead
+    crossing into the next block's) the port decodes bmh_tpu's container
+    to bmh_tpu's bytes.  bmh_tpu decodes at its default chunk size: its
+    flat decode pads the chunk axis to 1024 chunks, which at 65536 bits
+    asks for more memory than a test may take."""
+    data = _text(np.random.default_rng(65), 12000) + INPUTS["random"][0][:3000]
+    ref = bmh_tpu.compress_bytes(data, block_size=8192)
+    want = bmh_tpu.decompress_bytes(ref)
+    monkeypatch.setattr(tconfig.DEFAULT, "decode_chunk_bits", 65536)
+    assert bt.decompress_bytes(ref, device="cpu") == want == data

@@ -105,6 +105,58 @@ def test_phase_a_kernel_long_chunks(cuda, chunk_bits):
     assert torch.equal(cnt, cnt_p) and torch.equal(ex, ex_p)
 
 
+PHASE_B_CASES = ["oversubscribed_clip", "all_zero", "maxl8_ignores_longer",
+                 "long_codes", "random_tables", "chunk_bits_32", "chunk_bits_64",
+                 "chunk_bits_544"]
+
+
+@pytest.mark.parametrize("case", range(len(PHASE_B_CASES)), ids=PHASE_B_CASES)
+def test_phase_b_kernel_matches_plain_on_hostile_inputs(cuda, case):
+    """K2 where the clip fires, where only overflow resets happen, where
+    counts above maxl must be ignored, on codes of up to 31 bits, under a
+    table per chunk, at the shortest chunks and at one whose steps are no
+    multiple of the output window; 1003 chunks, no multiple of a block's."""
+    name, *args = synth.phase_b_hostile_cases(5, 1003)[case]
+    assert name == PHASE_B_CASES[case]
+    wext, count_t, entry = (torch.from_numpy(a).to(cuda) for a in args[:3])
+    _build.reset_launches()
+    got = dk.phase_b(wext, count_t, entry, *args[3:])
+    assert _build.LAUNCHES["gap_decode_phase_b"] == 1
+    assert torch.equal(got, dk.phase_b_plain(wext, count_t, entry, *args[3:]))
+
+
+@pytest.mark.parametrize("chunk_bits", [32800, 65536])
+def test_gap_decode_kernels_past_32768_bits(cuda, chunk_bits):
+    """K1 and K2 at chunk sizes the config accepts beyond what K1's memo
+    once held in shared memory: 32800 bits (one chunk a block in shared
+    memory) and 65536 (the global scratch)."""
+    g = torch.Generator(device="cpu").manual_seed(chunk_bits)
+    nc = 5
+    wext = torch.randint(-2**31, 2**31, (chunk_bits // 32 + 1, nc), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(cuda)
+    counts = torch.zeros(32, dtype=torch.int32)
+    counts[[2, 3, 4, 6, 9]] = torch.tensor([1, 2, 3, 10, 20], dtype=torch.int32)
+    count_t = counts[:, None].repeat(1, nc).to(cuda)
+    cnt, ex = dk.phase_a(wext, count_t, chunk_bits, 16)
+    cnt_p, ex_p = dk.phase_a_plain(wext, count_t, chunk_bits, 16)
+    assert torch.equal(cnt, cnt_p) and torch.equal(ex, ex_p)
+    entry = torch.randint(0, 32, (nc,), generator=g, dtype=torch.int32).to(cuda)
+    assert torch.equal(dk.phase_b(wext, count_t, entry, chunk_bits, 16),
+                       dk.phase_b_plain(wext, count_t, entry, chunk_bits, 16))
+
+
+def test_roundtrip_decode_chunk_bits_65536(cuda, monkeypatch):
+    """decode_chunk_bits is the decoder's knob: a container decodes on the
+    card at 65536-bit chunks through both kernels."""
+    data = _text(300000, 8)
+    blob = bt.compress_bytes(data, device=cuda)
+    monkeypatch.setattr(config.DEFAULT, "decode_chunk_bits", 65536)
+    _build.reset_launches()
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    assert _build.LAUNCHES["gap_decode_phase_a"] > 0
+    assert _build.LAUNCHES["gap_decode_phase_b"] > 0
+
+
 @pytest.mark.parametrize("case", range(3), ids=["zeros", "all_255", "random"])
 def test_imtf_kernel_matches_plain_on_hostile_codes(cuda, case):
     """K3 on batches with no step, with every step moving the whole list and
@@ -228,10 +280,6 @@ def test_wrappers_reject_bad_inputs(cuda):
             dk.phase_a(wext, count_t, chunk_bits, maxl)
         with pytest.raises(ValueError):
             dk.phase_b(wext, count_t, entry, chunk_bits, maxl)
-    long_bits = 2 * dk.PHASE_A_MAX_CHUNK_BITS  # more than K1's memo holds
-    with pytest.raises(ValueError, match="up to"):
-        dk.phase_a(torch.zeros((long_bits // 32 + 1, 1), dtype=torch.int32, device=cuda),
-                   count_t[:, :1].contiguous(), long_bits, 8)
     bad = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         sort_kernel.sort3(bad, bad, bad[:, ::2].contiguous())

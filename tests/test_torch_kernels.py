@@ -1,5 +1,6 @@
 """bmh_tpu_torch kernels K1-K4: each plain PyTorch version against its
-Pallas function in interpret mode and against bmh_tpu's scan formulation,
+Pallas function in interpret mode and against bmh_tpu's scan formulation
+(K1, K2 and K3 also on inputs made to hurt their kernels' designs),
 on the same numpy inputs; K4's composed walk against its one-row-a-step
 walk, and its composed links against bmh_tpu's _compose_packed.  Integer
 outputs are compared exactly (tolerance 0)."""
@@ -112,6 +113,48 @@ def test_phase_a_plain_matches_pallas_on_hostile_tables(case):
         wide, _ = tdk.phase_a_plain(torch.from_numpy(wext), torch.from_numpy(count_t),
                                     chunk_bits, 16)
         assert not torch.equal(wide, cnt_t)
+
+
+PHASE_B_CASES = ["oversubscribed_clip", "all_zero", "maxl8_ignores_longer",
+                 "long_codes", "random_tables", "chunk_bits_32", "chunk_bits_64",
+                 "chunk_bits_544"]
+
+
+@pytest.mark.parametrize("case", range(len(PHASE_B_CASES)), ids=PHASE_B_CASES)
+def test_phase_b_plain_matches_pallas_on_hostile_cases(case):
+    """The inputs made to hurt K2's codeword-a-turn decode and its output
+    windows, against bmh_tpu's Pallas kernel (interpret mode) and its scan,
+    exactly.  13 chunks: the Pallas side alone is padded to 16 (its chunk
+    axis is cut in rows of 8), with zero words, tables and entries."""
+    name, wext, count_t, entry, chunk_bits, maxl = synth.phase_b_hostile_cases(7, 13)[case]
+    assert name == PHASE_B_CASES[case]
+    got = tdk.phase_b(torch.from_numpy(wext), torch.from_numpy(count_t),
+                      torch.from_numpy(entry), chunk_bits, maxl).numpy()  # CPU: plain
+    nc = wext.shape[1]
+    pad = ((0, 0), (0, 16 - nc))
+    wext_p, count_p = np.pad(wext, pad), np.pad(count_t, pad)
+    entry_p = np.pad(entry, (0, 16 - nc))
+    idx_p = PD.phase_b(jnp.asarray(wext_p.view(np.uint32)), jnp.asarray(count_p),
+                       jnp.asarray(entry_p), chunk_bits=chunk_bits, maxl=maxl,
+                       interpret=True)
+    words = np.ascontiguousarray(wext_p[:-1].T).reshape(-1).view(np.uint32)
+    tiles = jhuf.unpack_bit_tiles_flat(jnp.asarray(words), chunk_bits)
+    idx_s = PD.phase_b_scan(tiles, jnp.asarray(count_p), jnp.asarray(entry_p),
+                            chunk_bits=chunk_bits, maxl=maxl)
+    assert got.shape == (chunk_bits + 32, nc)
+    np.testing.assert_array_equal(got, np.asarray(idx_p)[:, :nc])
+    np.testing.assert_array_equal(got, np.asarray(idx_s)[:, :nc])
+    assert (got[:entry[0], 0] == -1).all()  # nothing before the entry gap
+    if name == "oversubscribed_clip":
+        assert (got == 256).any() and (got > 200).sum() > (got == 256).sum()
+    if name == "all_zero":  # only overflow resets: nothing completes
+        assert (got == -1).all()
+    if name == "maxl8_ignores_longer":
+        wide = tdk.phase_b_plain(torch.from_numpy(wext), torch.from_numpy(count_t),
+                                 torch.from_numpy(entry), chunk_bits, 16).numpy()
+        assert not np.array_equal(wide, got)
+    if name == "long_codes":  # codewords of 20 bits and more completed
+        assert got.max() >= 20
 
 
 @pytest.mark.parametrize("case", range(3), ids=["zeros", "all_255", "random"])
