@@ -1,10 +1,13 @@
 """compress/decompress API, with bmh_tpu/api.py's signatures plus `device`.
 
-`device` defaults to "cuda", where the hand-written kernels run; without a
-card that default raises RuntimeError instead of carrying on on the CPU.
-`device="cpu"` runs the same pipeline with the kernels' plain PyTorch
-versions (the tests' setting).  `backend` exists for signature parity:
-"torch" is the only backend of this package.
+`device` defaults to "cuda", where the hand-written kernels run: every
+visible card; "cuda:N" pins card N.  Without a card "cuda" raises
+RuntimeError instead of carrying on on the CPU.  `device="cpu"` runs the
+same pipeline with the kernels' plain PyTorch versions (the tests'
+setting).  A list of devices (["cpu"] * 4) fans the batches out over its
+entries.  Of several devices the backend keeps the first BMH_DEVICES (0 =
+all, as in bmh_tpu).  `backend` exists for signature parity: "torch" is
+the only backend of this package.
 """
 
 from __future__ import annotations
@@ -27,14 +30,27 @@ def _validate_block_size(block_size: int) -> None:
             f"block_size {block_size} out of range [1, {MAX_BLOCK_SIZE}]")
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_devices(device) -> list[torch.device]:
+    """The devices a backend fans out over: a bare "cuda" is every visible
+    card (TorchBackend keeps the first BMH_DEVICES); "cuda:N" is card N;
+    "cpu" is one CPU device; a list or tuple, each of its entries in
+    turn."""
+    if isinstance(device, (list, tuple)):
+        return [d for entry in device for d in _resolve_devices(entry)]
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to "
                            "run the plain PyTorch versions of the kernels")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    return dev
+    if dev.type == "cpu":
+        return [dev]
+    count = torch.cuda.device_count()
+    if dev.index is not None:
+        if dev.index >= count:
+            raise ValueError(f"no card {dev}: {count} visible")
+        return [dev]
+    return [torch.device("cuda", i) for i in range(count)]
 
 
 def get_backend(name: str, device="cuda"):
@@ -42,7 +58,7 @@ def get_backend(name: str, device="cuda"):
         raise ValueError(f"unknown backend {name!r}")
     from .models.pipeline import TorchBackend
 
-    return TorchBackend(_resolve_device(device))
+    return TorchBackend(_resolve_devices(device))
 
 
 def _as_array(data) -> np.ndarray:

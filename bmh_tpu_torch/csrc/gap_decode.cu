@@ -92,6 +92,7 @@
 // lanes in lock-step exist only because its vector unit can neither gather
 // nor branch per lane.
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -106,6 +107,8 @@ constexpr int kAmax = 256;
 constexpr int kChunkThreads = 32;
 constexpr int kMaxShared = 232448;
 constexpr int kWindow = 128;
+// cards whose K1 attributes launch_phase_a remembers having set
+constexpr int kMaxDevices = 64;
 
 // lim[l] = min(sum_{k<=l} count[k] 2^(31-k), 2^31) up to maxl; above it
 // 2^31, which no halved window reaches
@@ -374,11 +377,16 @@ int launch_phase_a(const uint32_t* wext, const int32_t* count_t, int32_t* cnt_ou
     return static_cast<int>(cudaGetLastError());
   }
   const size_t shared = phase_a_bytes<Memo>(chunk_bits, threads);
-  // once per kernel: at 512-bit chunks five 43 KB blocks share an SM if it
-  // gives shared memory all it can; above 48 KB a block has to opt in
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // once per kernel and card (the attributes belong to the current
+  // device): at 512-bit chunks five 43 KB blocks share an SM if it gives
+  // shared memory all it can; above 48 KB a block has to opt in.  Setting
+  // them twice, from two threads at once, is harmless.
+  static std::atomic<bool> configured[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !configured[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
         phase_a_kernel<Memo, true>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess)
@@ -386,7 +394,7 @@ int launch_phase_a(const uint32_t* wext, const int32_t* count_t, int32_t* cnt_ou
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    if (dev < kMaxDevices) configured[dev].store(true, std::memory_order_release);
   }
   phase_a_kernel<Memo, true><<<(nc + threads - 1) / threads, threads, shared, stream>>>(
       wext, count_t, cnt_out, exit_out, nullptr, nc, chunk_bits, maxl);

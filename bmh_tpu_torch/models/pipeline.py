@@ -1,4 +1,4 @@
-"""Batched block codec on one torch device — the port's backend.
+"""Batched block codec on torch devices — the port's backend.
 
 Compress, bmh_tpu's two programs: BWT with checkpoints -> MTF -> RLE0 ->
 histogram -> two-queue code lengths -> canonical codes -> bitpack, for a
@@ -21,11 +21,24 @@ same single copy, and a total that differs from the block length raises.
 Blocks are grouped by power-of-two size bucket and batched up to
 `max_dispatch` blocks.  PyTorch runs eagerly, so no program cache exists
 and every knob is read at call time.
+
+Dispatch, bmh_tpu's: each batch is split into a *dispatch* (stage, upload,
+launch, start the one device->host copy) and a *drain* (wait for the copy,
+unpack), and up to `inflight` (BMH_INFLIGHT) batches wait between the two
+(`_run_window`).  A decompress dispatch never waits for the card, so the
+host stages batch k+1 while the card decodes batch k; a compress dispatch
+waits inside (a tie count a round), so its window holds only the copies.
+Every dispatch runs on the calling thread with its device current.  A
+compress dispatch of b_pad blocks splits its rows over `_ndev_for(b_pad)`
+of the backend's devices, as bmh_tpu's shard_map splits the block axis;
+decompress dispatches go round-robin over them.  `LAST_DISPATCH` records
+the last fan-out of each direction.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
+import functools
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
@@ -35,6 +48,7 @@ from ..ops import huffman as ops_huf
 from ..ops import mtf as ops_mtf
 from ..ops import rle as ops_rle
 from ..utils import config as config_mod
+from ..utils.tracing import annotate
 
 A = ops_rle.RLE_ALPHABET
 # minimum compact-set capacity of the sparse refinement
@@ -57,6 +71,15 @@ def _bucket(n: int) -> int:
 def _n_cps(n: int, stride: int) -> int:
     """Checkpoints stored for a block of true length n."""
     return max(-(-n // stride) - 1, 0)
+
+
+def _put(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`; to a card through pinned memory, without
+    waiting for the copy."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _chunks(seq: list, size: int | None = None):
@@ -174,42 +197,73 @@ def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
                                  tier2_div=cfg.tier2_div)
 
 
-def _compress_batch(arrs, idxs, nmax: int, device, stride: int, hard: bool):
-    """Compress one batch (hard: by the full-rounds program); returns its
-    per-block result dicts."""
+class _HostCopy:
+    """The device->host copy that ends a dispatch: on a card, into pinned
+    memory with an event recorded after it (started, not waited for); on
+    the CPU, the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type != "cuda":
+            self.host = t
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
+                       b_pad: int, device):
+    """Dispatch the blocks `idxs` on `device`: stage and upload them, run
+    the compress program (hard: the full-rounds one; b_pad sizes the
+    sparse one's compact set) and start the ONE copy of [per-block meta |
+    compacted payload words] to the host.  Returns (the copy, the meta's
+    column count)."""
     b = len(idxs)
     batch = np.zeros((b, nmax), dtype=np.uint8)
     ns = np.zeros(b, dtype=np.int64)
     for row, i in enumerate(idxs):
         batch[row, : arrs[i].size] = arrs[i]
         ns[row] = arrs[i].size
-    data = torch.from_numpy(batch).to(device)
-    n = torch.from_numpy(ns).to(device)
+    data = _put(batch, device)
+    n = _put(ns, device)
     if hard:
         out = compress_full_fn(data, n, stride)
     else:
-        out = compress_sparse_fn(data, n, stride, _next_pow2(b))
+        out = compress_sparse_fn(data, n, stride, b_pad)
     words, bits, lens, freqs, m, shift, cps, aper = out
 
-    # ragged concat of each block's word-aligned payload, then ONE copy of
-    # [meta | payload]: meta row = bits, nw, shift, m, aperiodic,
-    # present (257), lens (257), cps (k)
+    # ragged concat of each block's word-aligned payload: meta row = bits,
+    # nw, shift, m, aperiodic, present (257), lens (257), cps (k)
     nw = (bits + 31) // 32
     slot = torch.arange(words.shape[1], device=data.device)[None, :]
     flat = words[slot < nw[:, None]]
     meta = torch.cat([torch.stack([bits, nw, shift, m, aper.to(torch.int64)], 1),
                       (freqs > 0).to(torch.int64), lens, cps], dim=1)
-    host = torch.cat([meta.reshape(-1), flat]).cpu().numpy()
-    cols = meta.shape[1]
+    return _HostCopy(torch.cat([meta.reshape(-1), flat])), meta.shape[1]
+
+
+def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
+    """Wait for a compress dispatch's copy; returns its per-block result
+    dicts."""
+    copy, cols = part
+    host = copy.wait()
+    b = len(idxs)
     meta_np = host[: b * cols].reshape(b, cols)
     flat_np = host[b * cols:].astype(">u4")
     woffs = np.cumsum(meta_np[:, 1]) - meta_np[:, 1]
     results = []
-    for row in range(b):
+    for row, i in enumerate(idxs):
         tb, nwr, sh, mr, ap = (int(v) for v in meta_np[row, :5])
         present = meta_np[row, 5:5 + A].astype(bool)
         lens_r = meta_np[row, 5 + A:5 + 2 * A].astype(np.uint8)
-        n_r = int(ns[row])
+        n_r = int(arrs[i].size)
         payload = (flat_np[woffs[row]: woffs[row] + nwr].tobytes()[: (tb + 7) // 8]
                    if (lens_r > 0).any() else b"")
         results.append({
@@ -275,28 +329,28 @@ def _tables(words, lens_all, seg_id, chunk_bits: int):
     return ops_huf.words_ext(words, chunk_bits), count_t, sym_b
 
 
-def _compact_rows(data: torch.Tensor, ns: torch.Tensor,
-                  totals: torch.Tensor) -> torch.Tensor:
+def _compact_rows(data: torch.Tensor, totals: torch.Tensor,
+                  ns: np.ndarray) -> torch.Tensor:
     """The decoded rows compacted back to back (sum(ns) bytes), then each
-    row's decoded total as 8 little-endian bytes — so the caller's single
-    copy carries the integrity trailer."""
-    pos = torch.arange(data.shape[1], device=data.device)[None, :]
-    return torch.cat([data[pos < ns[:, None]],
-                      totals.contiguous().view(torch.uint8)])
+    row's decoded total as 8 little-endian bytes, so the caller's single
+    copy carries the integrity trailer.  The lengths are host data: the
+    compaction's size is known without waiting for the card."""
+    rows = [data[row, :n] for row, n in enumerate(ns.tolist())]
+    return torch.cat(rows + [totals.contiguous().view(torch.uint8)])
 
 
 def decode_flat(words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns,
                 shifts, cps, nmax: int, chunk_bits: int, maxl: int,
-                stride: int) -> torch.Tensor:
+                stride: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The flat route on device tensors: fused gap decode + inverse MTF +
-    cursor iBWT.  Returns _compact_rows' byte tensor."""
+    cursor iBWT.  Returns ((B, nmax) uint8 rows, (B,) int64 decoded
+    totals)."""
     wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
     codes, totals = ops_huf.gap_decode_rle0_flat(
         wext, count_t, seg_start, seg_start_idx, seg_id, sym_b, ms, ns,
         nmax, chunk_bits, maxl)
     last = ops_mtf.mtf_inverse(codes, ns, config_mod.DEFAULT.imtf_chunk)
-    data = ops_bwt.bwt_inverse_cursors(last, shifts, cps, ns, stride)
-    return _compact_rows(data, ns, totals)
+    return ops_bwt.bwt_inverse_cursors(last, shifts, cps, ns, stride), totals
 
 
 def decompress_stage2_fn(syms: torch.Tensor, m: torch.Tensor,
@@ -309,34 +363,32 @@ def decompress_stage2_fn(syms: torch.Tensor, m: torch.Tensor,
 
 def decode_flat_periodic(words, lens_all, seg_start, seg_start_idx, seg_id,
                          ms, ns, shifts, nmax: int, chunk_bits: int,
-                         maxl: int) -> torch.Tensor:
+                         maxl: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The periodic route (no cursor checkpoints: the rank is no
     bijection): gap decode to RLE0 symbols (K1, K2), their exact decoded
     totals, then RLE0 inverse + inverse MTF (K3) + doubling iBWT.  Returns
-    _compact_rows' byte tensor."""
+    decode_flat's pair."""
     wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
     syms = ops_huf.gap_decode_flat(wext, count_t, seg_start, seg_start_idx,
                                    seg_id, sym_b, ms, nmax, chunk_bits, maxl)
     totals = ops_rle.rle0_decoded_len(syms, ms)
-    return _compact_rows(decompress_stage2_fn(syms, ms, shifts, ns), ns, totals)
+    return decompress_stage2_fn(syms, ms, shifts, ns), totals
 
 
-def _decompress_batch(blocks, idxs, nmax: int, stride: int | None, device,
-                      results):
-    """Decode one batch by the flat route, or the periodic route when
-    stride is None; raises ValueError on a block whose decoded total is
-    not its length."""
+def _decompress_dispatch(blocks, idxs, nmax: int, stride: int | None, device):
+    """Dispatch one batch on `device` by the flat route, or the periodic
+    route when stride is None: stage it on the host, upload, decode,
+    compact the rows and start the ONE copy of [bytes | decoded totals] to
+    the host.  Nothing here waits for the card.  Returns (the copy, the
+    block lengths)."""
     chunk_bits = config_mod.DEFAULT.decode_chunk_bits
     (words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts,
      maxl) = _stage_flat_np(blocks, idxs, chunk_bits)
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    args = (put(words.view(np.int32)), put(lens_all), put(seg_start),
-            put(seg_start_idx), put(seg_id), put(ms), put(ns), put(shifts))
+    args = tuple(_put(x, device) for x in (words.view(np.int32), lens_all,
+                                           seg_start, seg_start_idx, seg_id,
+                                           ms, ns, shifts))
     if stride is None:
-        flat = decode_flat_periodic(*args, nmax, chunk_bits, maxl)
+        data, totals = decode_flat_periodic(*args, nmax, chunk_bits, maxl)
     else:
         kcp = max(max(nmax // stride, 1) - 1, 1)
         cps = np.zeros((len(idxs), kcp), dtype=np.int64)
@@ -345,8 +397,17 @@ def _decompress_batch(blocks, idxs, nmax: int, stride: int | None, device,
             if bc is not None and len(bc) > 0:
                 cc = np.asarray(bc, dtype=np.int64)[:kcp]
                 cps[row, : cc.size] = cc
-        flat = decode_flat(*args, put(cps), nmax, chunk_bits, maxl, stride)
-    flat_np = flat.cpu().numpy()
+        data, totals = decode_flat(*args, _put(cps, device), nmax, chunk_bits,
+                                   maxl, stride)
+    return _HostCopy(_compact_rows(data, totals, ns)), ns
+
+
+def _decompress_drain(part, idxs, results) -> None:
+    """Wait for a decompress dispatch's copy and slice its blocks into
+    `results`; raises ValueError on a block whose decoded total is not its
+    length."""
+    copy, ns = part
+    flat_np = copy.wait()
     total = int(ns.sum())
     totals = flat_np[total:].view("<i8")
     offs = np.cumsum(ns) - ns
@@ -381,17 +442,75 @@ def _decompress_single(blocks, idxs, nmax: int, device, results):
 
 
 # ---------------------------------------------------------------------------
+# Dispatch: the in-flight window and the fan-out over devices
+# ---------------------------------------------------------------------------
+
+# the last compress / decompress fan-out, as bmh_tpu records it
+LAST_DISPATCH = {"compress_ndev": 1, "decompress_ndev": 1}
+
+
+def _ndev_for(b_pad: int, n_devices: int) -> int:
+    """Devices to split a b_pad-block compress dispatch over: the largest
+    power of two <= min(n_devices, b_pad)."""
+    return 1 << max(min(n_devices, b_pad).bit_length() - 1, 0)
+
+
+def _dispatch_on(device, label: str, fn):
+    """fn(device) under `label`, on a card with that card current."""
+    with annotate(label):
+        if device.type != "cuda":
+            return fn(device)
+        with torch.cuda.device(device):
+            return fn(device)
+
+
+def _run_window(batches, drain, depth: int) -> None:
+    """bmh_tpu's bounded in-flight window.
+
+    `batches` yields (key, parts), a part being (device, label, dispatch);
+    dispatch(device) returns (a _HostCopy, anything).  Batches are
+    dispatched in order on the calling thread, and while more than `depth`
+    wait, the oldest is drained by drain(key, [its parts' results]); the
+    rest are drained in order at the end.  If a dispatch or a drain raises,
+    every copy started lands before the error goes on."""
+    pending: deque = deque()
+    try:
+        for key, parts in batches:
+            done: list = []
+            pending.append((key, done))
+            for part in parts:
+                done.append(_dispatch_on(*part))
+            while len(pending) > depth:
+                drain(*pending[0])
+                pending.popleft()
+        while pending:
+            drain(*pending[0])
+            pending.popleft()
+    finally:
+        for _, done in pending:
+            for copy, _ in done:
+                copy.wait()
+
+
+# ---------------------------------------------------------------------------
 # Backend
 # ---------------------------------------------------------------------------
 
 class TorchBackend:
-    """Block codec on one torch device ("cuda" runs the kernels, "cpu" the
-    plain PyTorch versions)."""
+    """Block codec on torch devices ("cuda" runs the kernels, "cpu" the
+    plain PyTorch versions).  `devices` is one device or a list that the
+    batches fan out over, of which the first BMH_DEVICES are kept (0 = all,
+    as in bmh_tpu); a list may repeat a device ([cpu] * 4 drives the
+    fan-out on the CPU)."""
 
     name = "torch"
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, devices):
+        devs = devices if isinstance(devices, (list, tuple)) else [devices]
+        cap = config_mod.DEFAULT.devices
+        self.devices = [torch.device(d) for d in (devs[:cap] if cap > 0 else devs)]
+        if not self.devices:
+            raise ValueError("TorchBackend needs at least one device")
 
     def compress_blocks(self, blocks: list[np.ndarray], stride: int,
                         bucket: int | None = None,
@@ -404,18 +523,44 @@ class TorchBackend:
         for i, blk in enumerate(arrs):
             nmax = max(bucket, _bucket(blk.size)) if bucket else _bucket(blk.size)
             groups[(nmax, _looks_pathological(blk))].append(i)
-        for (nmax, hard), all_idxs in groups.items():
-            for idxs in _chunks(all_idxs):
-                for i, r in zip(idxs, _compress_batch(arrs, idxs, nmax, self.device,
-                                                      stride, hard or full_rounds)):
-                    results[i] = r
+
+        def batches():
+            for (nmax, hard), all_idxs in groups.items():
+                for idxs in _chunks(all_idxs):
+                    b_pad = _next_pow2(len(idxs))
+                    ndev = _ndev_for(b_pad, len(self.devices))
+                    LAST_DISPATCH["compress_ndev"] = ndev
+                    # device d takes rows [d * b_loc, (d + 1) * b_loc) of
+                    # the padded batch, with b_loc sizing its compact set
+                    # as bmh_tpu's per-shard program; rows past the batch
+                    # are padding, and a device with none of the real rows
+                    # gets no work
+                    b_loc = b_pad // ndev
+                    shards = [s for s in (idxs[d * b_loc:(d + 1) * b_loc]
+                                          for d in range(ndev)) if s]
+                    yield shards, [
+                        (self.devices[d], f"compress_dispatch_b{b_pad}",
+                         functools.partial(_compress_dispatch, arrs, s, nmax,
+                                           stride, hard or full_rounds, b_loc))
+                        for d, s in enumerate(shards)]
+
+        def drain(shards, parts):
+            with annotate("compress_assemble"):
+                for s, part in zip(shards, parts):
+                    for i, r in zip(s, _compress_unpack(part, arrs, s, stride)):
+                        results[i] = r
+
+        _run_window(batches(), drain, config_mod.DEFAULT.inflight)
         return results  # type: ignore[return-value]
 
     def decompress_blocks(self, blocks: list[dict],
                           bucket: int | None = None) -> list[np.ndarray]:
         """bucket: force a uniform padded block size.  Blocks are grouped
         as bmh_tpu groups them: single-symbol; periodic (no checkpoints,
-        longer than one stride); the rest by (bucket, stride)."""
+        longer than one stride); the rest by (bucket, stride).  Flat and
+        periodic batches go round-robin over the devices through the
+        window; single-symbol batches run after them, one at a time, on the
+        first device, as in bmh_tpu."""
         results: list[np.ndarray | None] = [None] * len(blocks)
         fgroups: dict[tuple[int, int], list[int]] = defaultdict(list)
         pgroups: dict[int, list[int]] = defaultdict(list)
@@ -432,13 +577,22 @@ class TorchBackend:
                 pgroups[nmax].append(i)
             else:
                 fgroups[(nmax, stride)].append(i)
-        for (nmax, stride), all_idxs in fgroups.items():
-            for idxs in _chunks(all_idxs):
-                _decompress_batch(blocks, idxs, nmax, stride, self.device, results)
-        for nmax, all_idxs in pgroups.items():
-            for idxs in _chunks(all_idxs):
-                _decompress_batch(blocks, idxs, nmax, None, self.device, results)
+        jobs = [(idxs, nmax, stride) for (nmax, stride), all_idxs in fgroups.items()
+                for idxs in _chunks(all_idxs)]
+        jobs += [(idxs, nmax, None) for nmax, all_idxs in pgroups.items()
+                 for idxs in _chunks(all_idxs)]
+        devs = self.devices
+        # successive dispatches round-robin over the devices by a
+        # monotonic count, as in bmh_tpu; the window keeps at least one
+        # dispatch a device in flight
+        batches = ((idxs, [(devs[k % len(devs)], f"decompress_dispatch_b{len(idxs)}",
+                            functools.partial(_decompress_dispatch, blocks, idxs,
+                                              nmax, stride))])
+                   for k, (idxs, nmax, stride) in enumerate(jobs))
+        _run_window(batches, lambda idxs, parts: _decompress_drain(parts[0], idxs, results),
+                    max(config_mod.DEFAULT.inflight, len(devs)))
+        LAST_DISPATCH["decompress_ndev"] = max(1, min(len(jobs), len(devs)))
         for nmax, all_idxs in sgroups.items():
             for idxs in _chunks(all_idxs):
-                _decompress_single(blocks, idxs, nmax, self.device, results)
+                _decompress_single(blocks, idxs, nmax, self.devices[0], results)
         return results  # type: ignore[return-value]

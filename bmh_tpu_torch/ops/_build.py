@@ -12,7 +12,11 @@ the stream it is given and returns cudaGetLastError(); `check` raises on a
 non-zero code.
 
 LAUNCHES counts, per kernel, the launches its wrapper made: each wrapper
-adds one where it launches its kernel, and nowhere else.
+adds one (`count_launch`) where it launches its kernel, and nowhere else.
+A caller may launch from several threads, so the counts and the first
+build of a library each take a lock, and every launch goes through
+`on_device`, which makes the tensor's card current (a new thread starts on
+card 0) and hands over that card's current stream.
 """
 
 from __future__ import annotations
@@ -22,7 +26,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -41,11 +49,19 @@ SOURCES = {
 LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOGS: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -98,13 +114,29 @@ def build_all() -> dict[str, str]:
 
 
 def lib(src: str) -> ctypes.CDLL:
-    """The loaded library of one source, building it on first use."""
-    if src not in _libs:
-        st = _start(src)
-        if st is not None:
-            _finish(src, st)
-        _libs[src] = ctypes.CDLL(str(_so_path(src)))
-    return _libs[src]
+    """The loaded library of one source, building it on first use (one
+    thread builds; the others wait for it).  Two processes that both miss
+    the library build it twice, each into its own temporary file, and the
+    rename leaves one whole library: call `build_all` before starting
+    workers to build once."""
+    lib_ = _libs.get(src)
+    if lib_ is None:
+        with _build_lock:
+            if src not in _libs:
+                st = _start(src)
+                if st is not None:
+                    _finish(src, st)
+                _libs[src] = ctypes.CDLL(str(_so_path(src)))
+            lib_ = _libs[src]
+    return lib_
+
+
+@contextmanager
+def on_device(t):
+    """Around one launch: t's card is the current device, and the handle of
+    its current stream is yielded for the C entry point."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def on_card(t, name: str) -> bool:

@@ -134,11 +134,11 @@ def phase_a(wext: torch.Tensor, count_t: torch.Tensor, chunk_bits: int,
     fn = lib.bmh_phase_a
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.LAUNCHES["gap_decode_phase_a"] += 1
-    _build.check(fn(wext.data_ptr(), count_t.data_ptr(), cnt.data_ptr(),
-                    ex.data_ptr(), scratch.data_ptr(), nc, chunk_bits, maxl,
-                    torch.cuda.current_stream(wext.device).cuda_stream),
-                 "gap_decode_phase_a")
+    _build.count_launch("gap_decode_phase_a")
+    with _build.on_device(wext) as stream:
+        _build.check(fn(wext.data_ptr(), count_t.data_ptr(), cnt.data_ptr(),
+                        ex.data_ptr(), scratch.data_ptr(), nc, chunk_bits, maxl,
+                        stream), "gap_decode_phase_a")
     return cnt, ex
 
 
@@ -158,9 +158,9 @@ def phase_b(wext: torch.Tensor, count_t: torch.Tensor, entry: torch.Tensor,
     fn = _build.lib(_SRC).bmh_phase_b
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.LAUNCHES["gap_decode_phase_b"] += 1
-    _build.check(fn(wext.data_ptr(), count_t.data_ptr(), entry.data_ptr(),
-                    out.data_ptr(), nc, ld, chunk_bits, maxl,
-                    torch.cuda.current_stream(wext.device).cuda_stream),
-                 "gap_decode_phase_b")
+    _build.count_launch("gap_decode_phase_b")
+    with _build.on_device(wext) as stream:
+        _build.check(fn(wext.data_ptr(), count_t.data_ptr(), entry.data_ptr(),
+                        out.data_ptr(), nc, ld, chunk_bits, maxl, stream),
+                     "gap_decode_phase_b")
     return out[:, :nc]

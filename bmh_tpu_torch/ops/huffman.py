@@ -281,9 +281,13 @@ def gap_decode_rle0_flat(wext: torch.Tensor, count_t: torch.Tensor,
     carry_sum = _seg_scan_chunks(cs[-1], seg_start, torch.add, 0)
     out_pos = cs - contrib + carry_sum[None, :]  # exclusive, within block
 
+    # each block's total is its last chunk's sum: scattered to the block's
+    # slot, every other chunk's to a slot past the end (no boolean index,
+    # which would wait for the card)
     is_last = torch.cat([seg_start[1:], torch.ones_like(seg_start[:1])])
-    totals = torch.zeros(b, dtype=torch.int64, device=wext.device)
-    totals[seg_id[is_last]] = (carry_sum + cs[-1])[is_last]
+    totals = torch.zeros(b + 1, dtype=torch.int64, device=wext.device)
+    totals = totals.scatter(0, torch.where(is_last, seg_id, b),
+                            carry_sum + cs[-1])[:b]
 
     place = islit & (out_pos < ns[seg_id][None, :])
     flat_cap = b * nmax

@@ -104,11 +104,11 @@ def launch(table, starts, out, scratch, steps: int, hop: int,
     fn = _build.lib(_SRC).bmh_ibwt_walk
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(table.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
-                    b, nmax, starts.shape[1], steps, hop, parts,
-                    torch.cuda.current_stream(table.device).cuda_stream),
-                 "ibwt_walk")
+    with _build.on_device(table) as stream:
+        _build.check(fn(table.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        b, nmax, starts.shape[1], steps, hop, parts, stream),
+                     "ibwt_walk")
 
 
 def ibwt_walk(table: torch.Tensor, starts: torch.Tensor, steps: int,
@@ -123,6 +123,6 @@ def ibwt_walk(table: torch.Tensor, starts: torch.Tensor, steps: int,
         raise ValueError("ibwt_walk: Nmax above 2^23 does not fit the row field")
     out = torch.empty(starts.shape + (steps,), dtype=torch.uint8,
                       device=table.device)
-    _build.LAUNCHES["ibwt_walk"] += 1
+    _build.count_launch("ibwt_walk")
     launch(table, starts, out, scratch_for(table, starts, steps, hop), steps, hop)
     return out

@@ -49,8 +49,8 @@ def imtf_chunks(codes_tm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     fn = _build.lib(_SRC).bmh_imtf_chunks
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.LAUNCHES["imtf_chunks"] += 1
-    _build.check(fn(codes_tm.data_ptr(), ys.data_ptr(), q.data_ptr(), m, k,
-                    torch.cuda.current_stream(codes_tm.device).cuda_stream),
-                 "imtf_chunks")
+    _build.count_launch("imtf_chunks")
+    with _build.on_device(codes_tm) as stream:
+        _build.check(fn(codes_tm.data_ptr(), ys.data_ptr(), q.data_ptr(), m, k,
+                        stream), "imtf_chunks")
     return ys, q

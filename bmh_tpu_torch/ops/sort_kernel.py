@@ -79,10 +79,10 @@ def launch(k1, k2, idx, out, log_t: int, kinds: int = ALL_KINDS) -> None:
     fn = _build.lib(_SRC).bmh_sort3
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(k1.data_ptr(), k2.data_ptr(), idx.data_ptr(),
-                    *(o.data_ptr() for o in out), b, n.bit_length() - 1,
-                    log_t, kinds,
-                    torch.cuda.current_stream(k1.device).cuda_stream), "sort3")
+    with _build.on_device(k1) as stream:
+        _build.check(fn(k1.data_ptr(), k2.data_ptr(), idx.data_ptr(),
+                        *(o.data_ptr() for o in out), b, n.bit_length() - 1,
+                        log_t, kinds, stream), "sort3")
 
 
 def sort3(k1: torch.Tensor, k2: torch.Tensor, idx: torch.Tensor):
@@ -100,6 +100,6 @@ def sort3(k1: torch.Tensor, k2: torch.Tensor, idx: torch.Tensor):
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (k1, k2, idx)):
         raise ValueError("sort3: needs contiguous, 16-byte aligned inputs")
     out = tuple(torch.empty_like(k1) for _ in range(3))
-    _build.LAUNCHES["sort3"] += 1
+    _build.count_launch("sort3")
     launch(k1, k2, idx, out, pick_log_tile(n))
     return out

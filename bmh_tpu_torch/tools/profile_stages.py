@@ -12,8 +12,9 @@ Stage times are host-clock medians of 5 warm runs, each stage ended by
 torch.cuda.synchronize().  The profile (torch.profiler, CPU + CUDA) runs
 one warm compress_bytes and one decompress_bytes of the stream, and the
 backend's compress of its blocks by each BWT program, and reports wall
-time, summed device kernel time, the idle share 1 - device/wall, and the
-kernels with the most device time.  Prints one JSON object per section and,
+time, summed device kernel time, busy time (the union of the kernels'
+intervals), the idle share 1 - busy/wall, and the kernels with the most
+device time.  Prints one JSON object per section and,
 with --out, also writes them all to that file.
 """
 
@@ -28,12 +29,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from .. import api
 from ..models import pipeline
 from ..ops import bwt, huffman, mtf, rle
-from ..utils import config
+from ..utils import config, tracing
 from ..utils.synth import smoke_input
 
 BLOCK = 1 << 17
@@ -80,9 +80,11 @@ def compress_stages(blocks, dev) -> dict:
         lambda: huffman.canonical_codes_device(lens))
     _, ms["encode_bitpack"] = _timed(lambda: huffman.encode_bitpack(syms, m, lens, canon))
     arrs = list(blocks)
+    idxs = list(range(len(arrs)))
     for label, hard in (("sparse", False), ("full", True)):
-        _, ms[f"whole_batch_{label}"] = _timed(lambda: pipeline._compress_batch(
-            arrs, list(range(len(arrs))), BLOCK, dev, cfg.cursor_stride, hard))
+        _, ms[f"whole_batch_{label}"] = _timed(lambda: pipeline._compress_unpack(
+            pipeline._compress_dispatch(arrs, idxs, BLOCK, cfg.cursor_stride, hard,
+                                        b_pad, dev), arrs, idxs, cfg.cursor_stride))
     return ms
 
 
@@ -120,9 +122,9 @@ def decompress_stages(blob: bytes, dev) -> dict:
     last, ms["mtf_inverse"] = _timed(lambda: mtf.mtf_inverse(codes, nt, cfg.imtf_chunk))
     _, ms["bwt_inverse_cursors"] = _timed(
         lambda: bwt.bwt_inverse_cursors(last, sh, cps, nt, cfg.cursor_stride))
-    _, ms["whole_decode_flat"] = _timed(
-        lambda: pipeline.decode_flat(w, la, ss, ssi, sid, mt, nt, sh, cps, BLOCK,
-                                     cb, maxl, cfg.cursor_stride).cpu())
+    _, ms["whole_decode_flat"] = _timed(lambda: pipeline._compact_rows(
+        *pipeline.decode_flat(w, la, ss, ssi, sid, mt, nt, sh, cps, BLOCK, cb, maxl,
+                              cfg.cursor_stride), ns).cpu())
     return ms
 
 
@@ -145,17 +147,21 @@ def profile(fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    # kernel-level events only: an aten op's self device time is the time
-    # of the kernels it launched, which appear again as their own events
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    # the card's own work only: not the host side, and not the device side
+    # of the pipeline's annotated ranges, which span the kernels again
+    by_name: dict = {}
+    spans = tracing.device_activity(prof)
+    for name, a, b in spans:
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e3, calls + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    busy = tracing.busy_ms(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "section": f"profile_{label}", "wall_ms": wall, "device_ms": device_ms,
-        "idle_share": 1 - device_ms / wall if wall > 0 else None,
-        "top": [{"kernel": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
-                 "calls": e.count} for e in top],
+        "busy_ms": busy, "idle_share": 1 - busy / wall if wall > 0 else None,
+        "top": [{"kernel": k[:90], "device_ms": ms, "calls": calls}
+                for k, (ms, calls) in top],
     }
 
 

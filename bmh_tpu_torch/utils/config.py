@@ -11,10 +11,12 @@ default as in bmh_tpu) lets the inverse-BWT walk, kernel K4, run over the
 LF table composed with itself (ops/bwt._walk_hop: 16-step row links at
 every block size, where bmh_tpu packs two-step LF² entries for blocks <=
 64 KiB only); off, it walks one row a step.
-The other TPU knobs (pallas_decode, pallas_imtf, devices, inflight,
-decode_place) are accepted and validated but not read: the decode kernels
-always run on a card, and the rest select machinery the port does not have
-yet.
+`inflight` (BMH_INFLIGHT, 4) bounds the batches between dispatch and drain
+in models/pipeline.TorchBackend, and `devices` (BMH_DEVICES, 0 = all) caps
+the devices a TorchBackend keeps and so fans out over, as in bmh_tpu.
+The other TPU knobs (pallas_decode, pallas_imtf, decode_place) are
+accepted and validated but not read: the decode kernels always run on a
+card, and decode_place selects machinery the port does not have.
 """
 
 from __future__ import annotations
@@ -94,8 +96,8 @@ class CodecConfig:
     # strictly shrinks; collapses the long-run inputs that force maximum
     # doubling rounds (Calgary pic) and shrinks them further
     rle1: bool = field(default_factory=lambda: _env_bool("BMH_RLE1", True))
-    # production multi-device dispatch: 0 = auto (shard every batch over all
-    # local devices via shard_map), 1 = single-device, N = cap at N devices
+    # production multi-device dispatch: 0 = auto (shard every compress batch
+    # over all of the backend's devices), 1 = single-device, N = cap at N
     devices: int = field(default_factory=lambda: _env_int("BMH_DEVICES", 0))
     # bound on in-flight device dispatches per direction: a 1 GiB stream is
     # 256 batches, and an unbounded pending list pins every batch's padded

@@ -39,9 +39,19 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               periodic blocks) and b"\x00" * 3 (single symbol) round-trip
               on the card, containers equal to the CPU run's
   6. hostile  CRC-valid containers with a lying rle_len (a flat-route and
-              a periodic-route block) raise ValueError
+              a periodic-route block) raise ValueError, at BMH_INFLIGHT 1
+              and 4
+  7. inflight the stream at BMH_INFLIGHT 1 and 4 in turns (1, 4, 4, 1), and
+              once more each with BMH_PALLAS_SORT=1: golden SHA-256,
+              bit-exact; wall ms, device ms and busy ms (profiler), idle
+              share and peak memory of each direction, LAST_DISPATCH
+  8. blocks   the stream's first 2 MiB at 1 MiB blocks, at 100000-byte
+              blocks and at BMH_CURSOR_STRIDE=64: bmh_tpu's SHA-256 for each
+              (torch_golden.json "cases"), bit-exact
+  9. dist     two processes on the one card (gloo, block stripes): rank 0's
+              container equals the single-process one, both decode it
 The line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  `--dist-rank` runs one process of phase 9.
 """
 
 from __future__ import annotations
@@ -49,9 +59,12 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -531,15 +544,233 @@ def mutate_rle_len(blob: bytes, delta: int) -> bytes:
     return C.pack_file(raws, bs, total, stride=C.file_stride(blob))
 
 
+def device_profile(fn) -> dict:
+    """fn() under torch.profiler: wall ms, device ms (the card's kernels,
+    copies and fills summed over every stream), busy ms (the union of
+    their intervals: work on several streams may overlap), idle share
+    1 - busy / wall, and the five names of most device time."""
+    from bmh_tpu_torch.utils import tracing
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = tracing.device_activity(prof)
+    require(bool(spans), "the profiler saw no work on the card")
+    busy = tracing.busy_ms(spans)
+    require(busy <= wall, f"the card was busy {busy:.3f} ms in a {wall:.3f} ms "
+                          "call: annotated ranges were counted as work")
+    by_name: dict = {}
+    for name, a, b in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"prof_wall_ms": wall, "device_ms": sum(by_name.values()),
+            "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "top": [[k[:60], v] for k, v in top]}
+
+
+def inflight_phase(bt, data: bytes, golden: dict | None, card: str) -> None:
+    """The stream at BMH_INFLIGHT 1 and 4 in turns (1, 4, 4, 1), then with
+    BMH_PALLAS_SORT=1 at (1, 4): each turn a timed compress and decompress
+    (host clock, peak memory), then one of each under the profiler."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.utils import config
+
+    walls: dict = {}
+    for sort3, turns in ((False, (1, 4, 4, 1)), (True, (1, 4))):
+        config.DEFAULT.pallas_sort = sort3
+        for depth in turns:
+            config.DEFAULT.inflight = depth
+            row = {"inflight": depth, "pallas_sort": sort3}
+            for side in ("compress", "decompress"):
+                fn = ((lambda: bt.compress_bytes(data, block_size=BLOCK, device="cuda"))
+                      if side == "compress" else
+                      (lambda: bt.decompress_bytes(blob, device="cuda")))
+                _build.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+                walls.setdefault((side, sort3, depth), []).append(wall)
+                row[side] = {"wall_ms": wall,
+                             "peak_bytes": torch.cuda.max_memory_allocated(),
+                             "launches": dict(_build.LAUNCHES),
+                             "last_dispatch": dict(pipeline.LAST_DISPATCH)}
+                if side == "compress":
+                    blob = out
+                    sha = hashlib.sha256(blob).hexdigest()
+                    require(golden is None or sha == golden["container_sha256"],
+                            f"inflight {depth} (K5 {sort3}): container differs from "
+                            "bmh_tpu's recorded one")
+                    require(not sort3 or row[side]["launches"]["sort3"] > 0,
+                            "BMH_PALLAS_SORT=1 launched no sort3")
+                else:
+                    require(out == data, f"inflight {depth} (K5 {sort3}) round "
+                                         "trip is not bit-exact")
+                    require(all(row[side]["launches"][k] > 0 for k in
+                                ("gap_decode_phase_a", "gap_decode_phase_b",
+                                 "imtf_chunks", "ibwt_walk")),
+                            f"inflight {depth} decode missed a kernel: "
+                            f"{row[side]['launches']}")
+            print(f"[inflight] {card}: {json.dumps(row)}", flush=True)
+        for depth in (1, 4):
+            config.DEFAULT.inflight = depth
+            prof = {"inflight": depth, "pallas_sort": sort3,
+                    "compress": device_profile(
+                        lambda: bt.compress_bytes(data, block_size=BLOCK, device="cuda")),
+                    "decompress": device_profile(
+                        lambda: bt.decompress_bytes(blob, device="cuda"))}
+            print(f"[inflight] profiled {card}: {json.dumps(prof)}", flush=True)
+    config.DEFAULT.pallas_sort = False
+    config.DEFAULT.inflight = 4
+    # two slots on the one card: compress batches split over both,
+    # decompress batches dealt to both
+    two = ["cuda:0", "cuda:0"]
+    t = time.perf_counter()
+    blob2 = bt.compress_bytes(data, block_size=BLOCK, device=two)
+    c_ms = (time.perf_counter() - t) * 1e3
+    fan = dict(pipeline.LAST_DISPATCH)
+    t = time.perf_counter()
+    out = bt.decompress_bytes(blob2, device=two)
+    d_ms = (time.perf_counter() - t) * 1e3
+    fan["decompress_ndev"] = pipeline.LAST_DISPATCH["decompress_ndev"]
+    require(blob2 == blob and out == data and fan == {"compress_ndev": 2,
+                                                      "decompress_ndev": 2},
+            f"two slots on the card: container equal {blob2 == blob}, bit-exact "
+            f"{out == data}, fan-out {fan}")
+    print(f"[inflight] two slots on the card {card}: container equal, bit-exact, "
+          f"LAST_DISPATCH {fan}, compress {c_ms:.3f} ms, decompress {d_ms:.3f} ms",
+          flush=True)
+    print(f"[inflight] {card}: wall ms by (direction, K5, inflight), medians: "
+          + json.dumps({f"{side} K5={k5} inflight={d}": statistics.median(v)
+                        for (side, k5, d), v in walls.items()}), flush=True)
+
+
+def blocks_phase(bt, data: bytes, golden: dict | None, card: str) -> None:
+    """Round trips the main phases do not reach: 1 MiB blocks (rows above
+    2^18 sort through torch.sort; K3 and K4 at Nmax 2^20), 100000-byte
+    blocks (no power of two) and BMH_CURSOR_STRIDE=64 (K4's step count),
+    each on the stream's first 2 MiB against bmh_tpu's digest."""
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.utils import config
+
+    cases = {"blocks_1mib": (1 << 20, 4096), "blocks_100000": (100000, 4096),
+             "stride_64": (BLOCK, 64)}
+    for name, (block, stride) in cases.items():
+        part = data[: 2 << 20]
+        config.DEFAULT.cursor_stride = stride
+        _build.reset_launches()
+        try:
+            t = time.perf_counter()
+            blob = bt.compress_bytes(part, block_size=block, device="cuda")
+            out = bt.decompress_bytes(blob, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            config.DEFAULT.cursor_stride = 4096
+        launches = dict(_build.LAUNCHES)
+        sha = hashlib.sha256(blob).hexdigest()
+        require(out == part, f"{name} round trip is not bit-exact")
+        require(launches["imtf_chunks"] > 0 and launches["ibwt_walk"] > 0,
+                f"{name} launched no K3 or K4: {launches}")
+        if golden is not None:
+            want = golden["cases"][name]
+            require((want["block_size"], want["cursor_stride"]) == (block, stride)
+                    and sha == want["container_sha256"],
+                    f"{name} container differs from bmh_tpu's recorded one")
+        print(f"[blocks] {name} {card}: {len(part)} -> {len(blob)} bytes, sha256 "
+              f"{sha} (bmh_tpu's), bit-exact, round trip {wall:.3f} s, launches "
+              f"{launches}", flush=True)
+
+
+def dist_worker(rank: int, port: int, workdir: str) -> None:
+    """One process of the [dist] phase: block stripes of the input through
+    compress_stream and decompress_stream on the card, over gloo."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    import bmh_tpu_torch as bt
+    from bmh_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{port}", 2, rank)
+    wd = Path(workdir)
+    data = (wd / "input").read_bytes()
+    be = bt.get_backend("torch", "cuda")
+    t = time.perf_counter()
+    blob = distributed.compress_stream(data, BLOCK, be)
+    c_s = time.perf_counter() - t
+    require((blob is not None) == (rank == 0), f"rank {rank} got blob {blob is not None}")
+    if rank == 0:
+        (wd / "container").write_bytes(blob)
+    dist.barrier()
+    t = time.perf_counter()
+    back = distributed.decompress_stream((wd / "container").read_bytes(), be)
+    d_s = time.perf_counter() - t
+    require(back == data if rank == 0 else back is None,
+            f"rank {rank}: the distributed round trip is wrong")
+    dist.destroy_process_group()
+    print(f"[dist] rank {rank}: compress_stream {c_s:.3f} s, decompress_stream "
+          f"{d_s:.3f} s, ok", flush=True)
+
+
+def dist_phase(bt, data: bytes, card: str) -> None:
+    """Two processes on the one card, gloo on localhost, 4 MiB of the
+    stream: rank 0's container equals this process's, and both ranks decode
+    it.  The kernels are built already, so the children only load them."""
+    part = data[: 4 << 20]
+    single = bt.compress_bytes(part, block_size=BLOCK, device="cuda")
+    torch.cuda.empty_cache()  # the children share the card
+    with tempfile.TemporaryDirectory() as wd, socket.socket() as s:
+        (Path(wd) / "input").write_bytes(part)
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--dist-rank", str(r), "--dist-port", str(port),
+                                   "--dist-dir", wd], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print("\n".join(f"[dist] rank {r}| {line}" for line in out.splitlines()[-20:]),
+                  flush=True)
+            require(p.returncode == 0, f"[dist] rank {r} exited {p.returncode}")
+        blob = (Path(wd) / "container").read_bytes()
+    require(blob == single, "rank 0's container differs from the single-process one")
+    print(f"[dist] {card}: 2 processes, {len(part)} -> {len(blob)} bytes, rank 0's "
+          f"container equals the single-process one, both ranks decoded it; "
+          f"{wall:.1f} s with the processes' start", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # 1. card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    if args.dist_rank is not None:
+        dist_worker(args.dist_rank, args.dist_port, args.dist_dir)
+        return
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {kind} | nvidia-smi: {card} | torch {torch.__version__} "
@@ -677,15 +908,25 @@ def main() -> None:
     #    and on the periodic route
     small = bt.compress_bytes(data[:12000], block_size=16384, device="cuda")
     period = bt.compress_bytes(periodic[:2 * BLOCK], block_size=BLOCK, device="cuda")
-    for label, bad in (("flat", mutate_rle_len(small, -3)),
-                       ("periodic", mutate_rle_len(period, -2))):
-        try:
-            bt.decompress_bytes(bad, device="cuda")
-        except ValueError as e:
-            print(f"[hostile] {label}: lying rle_len rejected: {e}", flush=True)
-        else:
-            raise SystemExit(f"chip_smoke FAILED: {label} lying rle_len "
-                             "container decoded")
+    for depth in (1, 4):
+        config.DEFAULT.inflight = depth
+        for label, bad in (("flat", mutate_rle_len(small, -3)),
+                           ("periodic", mutate_rle_len(period, -2))):
+            try:
+                bt.decompress_bytes(bad, device="cuda")
+            except ValueError as e:
+                print(f"[hostile] {label}, inflight {depth}: lying rle_len "
+                      f"rejected: {e}", flush=True)
+            else:
+                raise SystemExit(f"chip_smoke FAILED: {label} lying rle_len "
+                                 f"container decoded at inflight {depth}")
+    config.DEFAULT.inflight = 4
+
+    # 7-9. the dispatch layer: the in-flight window, the block sizes the main
+    #      phases do not reach, two processes on the card
+    inflight_phase(bt, data, golden if check_golden else None, card)
+    blocks_phase(bt, data, golden if check_golden else None, card)
+    dist_phase(bt, data, card)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -289,3 +289,79 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):  # 4 bytes off a 16-byte line
         sort_kernel.sort3(*(torch.zeros(1025, dtype=torch.int32, device=cuda)[1:][None]
                             for _ in range(3)))
+
+
+def test_decode_on_side_streams_while_another_batch_runs(cuda):
+    """Two batches dispatched on two side streams at once, the second from
+    a worker thread, each equal to its default-stream decode."""
+    import threading
+
+    from bmh_tpu_torch.models import pipeline
+
+    blobs = [bt.compress_bytes(_text(400000, seed), block_size=65536, device=cuda)
+             for seed in (7, 8)]
+    infos = [bt.api._parse(b)[0] for b in blobs]
+
+    def decode(inf, results):
+        part = pipeline._decompress_dispatch(inf, list(range(len(inf))), 65536,
+                                             config.DEFAULT.cursor_stride, cuda)
+        pipeline._decompress_drain(part, list(range(len(inf))), results)
+
+    want = []
+    for inf in infos:
+        want.append([None] * len(inf))
+        decode(inf, want[-1])
+    got = [[None] * len(inf) for inf in infos]
+
+    def other():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            decode(infos[1], got[1])
+
+    with torch.cuda.stream(torch.cuda.Stream(cuda)):
+        t = threading.Thread(target=other)
+        t.start()
+        decode(infos[0], got[0])
+        t.join(timeout=120)
+    assert not t.is_alive()
+    for g, w in zip(got, want):
+        assert all(np.array_equal(x, y) for x, y in zip(g, w))
+
+
+@pytest.mark.parametrize("max_dispatch", [1, 3])
+def test_inflight_4_equals_inflight_1(cuda, monkeypatch, max_dispatch):
+    """Four batches in flight (BMH_INFLIGHT=4), also fanned out over two
+    slots on the card, write and decode the same bytes as one batch at a
+    time, K5 on and off."""
+    rng = np.random.default_rng(9)
+    motif = bytes(rng.integers(0, 256, 512, dtype=np.uint8))
+    data = _text(600000, 9) + motif * 128 + b"\x00" * 3
+    monkeypatch.setattr(config.DEFAULT, "max_dispatch", max_dispatch)
+    for sort3 in (False, True):
+        monkeypatch.setattr(config.DEFAULT, "pallas_sort", sort3)
+        blobs = {}
+        for inflight, dev in ((1, cuda), (4, cuda), (4, ("cuda:0", "cuda:0"))):
+            monkeypatch.setattr(config.DEFAULT, "inflight", inflight)
+            blobs[inflight, str(dev)] = blob = bt.compress_bytes(
+                data, block_size=65536, device=dev)
+            assert bt.decompress_bytes(blob, device=dev) == data
+        assert len(set(blobs.values())) == 1
+    assert blob == bt.compress_bytes(data, block_size=65536, device="cpu")
+
+
+def test_second_card(cuda, monkeypatch):
+    """"cuda:1" pins the second card, and "cuda" fans the batches out over
+    every card; both write the CPU's bytes (K1's shared-memory opt-in is
+    per card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from bmh_tpu_torch.models import pipeline
+
+    data = _text(500000, 10)
+    monkeypatch.setattr(config.DEFAULT, "max_dispatch", 2)
+    want = bt.compress_bytes(data, block_size=65536, device="cpu")
+    for dev in ("cuda:1", "cuda"):
+        blob = bt.compress_bytes(data, block_size=65536, device=dev)
+        assert blob == want
+        assert bt.decompress_bytes(blob, device=dev) == data
+    assert pipeline.LAST_DISPATCH["compress_ndev"] > 1
+    assert pipeline.LAST_DISPATCH["decompress_ndev"] > 1

@@ -13,7 +13,9 @@ FORBIDDEN = ("jax", "jaxlib", "bmh_tpu")
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, bmh_tpu_torch, bmh_tpu_torch.models.pipeline; "
+    code = ("import sys, bmh_tpu_torch, bmh_tpu_torch.models.pipeline, "
+            "bmh_tpu_torch.parallel.distributed, bmh_tpu_torch.utils.tracing, "
+            "bmh_tpu_torch.tools.profile_stages, bmh_tpu_torch.tools.ab_trees; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -32,6 +34,9 @@ def _imports(path: Path):
 def test_sources_name_no_jax_import():
     files = sorted((ROOT / "bmh_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"bmh_tpu_torch/parallel/distributed.py",
+            "bmh_tpu_torch/utils/tracing.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
