@@ -19,6 +19,8 @@ from .api import (
     get_backend,
 )
 
+__version__ = "0.5.0"
+
 __all__ = [
     "compress_bytes",
     "decompress_bytes",
@@ -29,4 +31,5 @@ __all__ = [
     "full_pipeline",
     "get_backend",
     "DEFAULT_BLOCK_SIZE",
+    "__version__",
 ]

@@ -6,8 +6,9 @@ RuntimeError instead of carrying on on the CPU.  `device="cpu"` runs the
 same pipeline with the kernels' plain PyTorch versions (the tests'
 setting).  A list of devices (["cpu"] * 4) fans the batches out over its
 entries.  Of several devices the backend keeps the first BMH_DEVICES (0 =
-all, as in bmh_tpu).  `backend` exists for signature parity: "torch" is
-the only backend of this package.
+all, as in bmh_tpu).  `backend` is "torch" (the batched codec of
+models/pipeline.py) or "oracle" (the sequential NumPy judge of
+models/oracle.py, to which `device` does not apply).
 """
 
 from __future__ import annotations
@@ -53,7 +54,36 @@ def _resolve_devices(device) -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(count)]
 
 
+class OracleBackend:
+    """Sequential NumPy backend: the correctness judge, not a hot path."""
+
+    name = "oracle"
+
+    def compress_blocks(self, blocks: list[np.ndarray], stride: int) -> list[dict]:
+        from .models import oracle
+
+        results = [oracle.compress_block(b, stride) for b in blocks]
+        for r in results:
+            r["present"] = r["freqs"] > 0
+        return results
+
+    def decompress_blocks(self, blocks: list[dict]) -> list[np.ndarray]:
+        from .models import oracle
+
+        out = []
+        for b in blocks:
+            present = np.asarray(b["present"])
+            single = int(np.nonzero(present)[0][0]) if int(present.sum()) == 1 else None
+            out.append(oracle.decompress_block(b["payload"], b["lens"], b["shift"],
+                                               b["orig_len"], b["rle_len"],
+                                               single_symbol=single))
+        return out
+
+
 def get_backend(name: str, device="cuda"):
+    """"torch" on `device`, or "oracle" (which takes no device)."""
+    if name == "oracle":
+        return OracleBackend()
     if name != "torch":
         raise ValueError(f"unknown backend {name!r}")
     from .models.pipeline import TorchBackend
@@ -86,11 +116,15 @@ def _rle1_restore(part: np.ndarray, raw_len: int) -> np.ndarray:
     return nativeio.rle1_decode(part, raw_len)
 
 
+def _pack_block(r: dict, raw_len: int) -> bytes:
+    """One backend result as a container block."""
+    return container.pack_block(raw_len, r["shift"], r["lens"], r["present"],
+                                r["payload"], cps=r["cps"], rle_len=r["rle_len"],
+                                pre_len=r["orig_len"])
+
+
 def _pack(results, raw_lens, block_size: int, total: int, stride: int) -> bytes:
-    packed = [container.pack_block(raw_len, r["shift"], r["lens"], r["present"],
-                                   r["payload"], cps=r["cps"],
-                                   rle_len=r["rle_len"], pre_len=r["orig_len"])
-              for r, raw_len in zip(results, raw_lens)]
+    packed = [_pack_block(r, raw_len) for r, raw_len in zip(results, raw_lens)]
     return container.pack_file(packed, block_size, total, stride=stride)
 
 
@@ -103,7 +137,8 @@ def compress_many(datas: list, block_size: int = DEFAULT_BLOCK_SIZE,
                   backend: str = "torch", uniform: bool = False,
                   device="cuda") -> list[bytes]:
     """Compress several independent streams in one batched backend call;
-    uniform=True pads every block to the block_size bucket."""
+    uniform=True pads every block of the torch backend to the block_size
+    bucket."""
     _validate_block_size(block_size)
     be = get_backend(backend, device)
     stride = CONFIG.cursor_stride
@@ -116,7 +151,7 @@ def compress_many(datas: list, block_size: int = DEFAULT_BLOCK_SIZE,
         spans.append((len(flat_blocks), len(blocks)))
         flat_blocks.extend(blocks)
         flat_raw.extend(raw_lens)
-    if uniform:
+    if uniform and be.name == "torch":
         from .models.pipeline import _bucket
 
         results = be.compress_blocks(flat_blocks, stride, bucket=_bucket(block_size))
@@ -221,7 +256,7 @@ def decompress_many(bufs: list[bytes], backend: str = "torch",
         raw_lens.extend(rl)
     if not infos:
         parts = []
-    elif uniform:
+    elif uniform and be.name == "torch":
         from .models.pipeline import _bucket
 
         parts = be.decompress_blocks(infos, bucket=_bucket(max_block))

@@ -97,12 +97,24 @@ def _looks_pathological(blk: np.ndarray) -> bool:
 # Compress
 # ---------------------------------------------------------------------------
 
+def _symbols(last: torch.Tensor, n: torch.Tensor):
+    """Last column -> (RLE0 symbols, their counts m, 257-bin histograms)."""
+    codes = ops_mtf.mtf_forward(last, n, config_mod.DEFAULT.mtf_chunk)
+    syms, m = ops_rle.rle0_encode(codes, n)
+    return syms, m, ops_huf.histogram(syms, m, A)
+
+
+def compress_stage1_fn(data: torch.Tensor, n: torch.Tensor, stride: int):
+    """Compress stage 1 of a (B, Nmax) batch by the full-rounds BWT:
+    (RLE0 symbols, their counts m, 257-bin histograms, bwt shift, cursor
+    checkpoints every `stride` positions, aperiodic flag)."""
+    last, shift, cps, aperiodic = ops_bwt.bwt_forward_cp(data, n, stride)
+    return (*_symbols(last, n), shift, cps, aperiodic)
+
+
 def _encode(last: torch.Tensor, n: torch.Tensor):
     """Last column -> (words, total_bits, lens, freqs, m RLE0 counts)."""
-    cfg = config_mod.DEFAULT
-    codes = ops_mtf.mtf_forward(last, n, cfg.mtf_chunk)
-    syms, m = ops_rle.rle0_encode(codes, n)
-    freqs = ops_huf.histogram(syms, m, A)
+    syms, m, freqs = _symbols(last, n)
     lens = ops_huf.code_lengths_device(freqs)
     canon = ops_huf.canonical_codes_device(lens)
     words, total_bits = ops_huf.encode_bitpack(syms, m, lens, canon)

@@ -101,9 +101,7 @@ def compress_stream(data: bytes | np.ndarray, block_size: int,
     mine = [i for i in range(len(blocks)) if i % pcount == pid]
     pre, raw_lens = api._rle1_blocks([blocks[i] for i in mine])
     results = backend.compress_blocks(pre, stride)
-    local = {i: container.pack_block(raw_len, r["shift"], r["lens"], r["present"],
-                                     r["payload"], cps=r["cps"],
-                                     rle_len=r["rle_len"], pre_len=r["orig_len"])
+    local = {i: api._pack_block(r, raw_len)
              for i, r, raw_len in zip(mine, results, raw_lens)}
     if pcount == 1:
         packed = [local[i] for i in range(len(blocks))]

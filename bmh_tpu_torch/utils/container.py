@@ -43,6 +43,9 @@ BLOCK_HEADER = struct.Struct("<IIHI")
 PERIODIC_SENTINEL = 0xFFFF
 ALPHABET = 257
 BITMAP_BYTES = (ALPHABET + 7) // 8
+# the CLI's and the resumable writer's default block size, as in bmh_tpu
+# (the API's default is config.DEFAULT.block_size)
+DEFAULT_BLOCK_SIZE = 1 << 20
 RLE1_FLAG = 0x80000000
 _LEN_WEIGHTS = np.array([16, 8, 4, 2, 1], dtype=np.int64)
 

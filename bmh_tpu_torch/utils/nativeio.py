@@ -1,4 +1,5 @@
-"""ctypes bindings to the shared host library (csrc/bmh_io.cpp): RLE1 and CRC32.
+"""ctypes bindings to the shared host library (csrc/bmh_io.cpp): RLE1, CRC32
+and a file compare.
 
 The source is shared with bmh_tpu and read only; this package compiles its
 own copy into bmh_tpu_torch/build/ at first use.  Every binding keeps the
@@ -47,6 +48,8 @@ def _load() -> ctypes.CDLL | None:
         lib = ctypes.CDLL(str(_SO))
     except OSError:
         return None
+    lib.bmh_compare_files.restype = ctypes.c_int
+    lib.bmh_compare_files.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
     lib.bmh_crc32.restype = ctypes.c_uint32
     lib.bmh_crc32.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
     for fn in (lib.bmh_rle1_encode, lib.bmh_rle1_decode):
@@ -64,6 +67,18 @@ def crc32(buf: bytes) -> int:
         return zlib.crc32(buf) & 0xFFFFFFFF
     view = np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8))
     return int(lib.bmh_crc32(view.ctypes.data, view.size))
+
+
+def compare_files(p1: str, p2: str) -> bool | None:
+    """Whether two files hold the same bytes; None without the library
+    (callers then compare in Python)."""
+    lib = _load()
+    if lib is None:
+        return None
+    r = lib.bmh_compare_files(str(p1).encode(), str(p2).encode())
+    if r < 0:
+        raise OSError(f"cannot compare {p1} vs {p2}")
+    return bool(r)
 
 
 def _rle1_encode_py(a: np.ndarray) -> np.ndarray:

@@ -7,7 +7,8 @@ profiler records, so the hot path pays one check for it.  `device_trace(out_dir)
 the enclosed block with torch.profiler, the CUDA activity included on a
 card, and writes a Chrome trace under `out_dir` or BMH_TRACE_DIR; without
 a directory it does nothing.  `device_activity` lists the card's work in a
-finished profile, and `busy_ms` the time the card had any of it running.
+finished profile, `busy_ms` the time the card had any of it running, and
+`device_profile` gives both for one call with its wall time and idle share.
 `StageTimer` sums wall-clock time per named stage.
 """
 
@@ -78,6 +79,25 @@ def busy_ms(spans) -> float:
             busy += b - max(a, end)
             end = b
     return busy / 1e3
+
+
+def device_profile(fn) -> dict:
+    """fn() on a card under torch.profiler: prof_wall_ms (the host clock
+    around the call and a synchronize, which the profiler lengthens),
+    device_ms (the card's kernels, copies and fills summed over every
+    stream), busy_ms (the union of their intervals), idle_share (1 - busy /
+    wall) and spans (device_activity's list)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = device_activity(prof)
+    busy = busy_ms(spans)
+    return {"prof_wall_ms": wall, "device_ms": sum(b - a for _, a, b in spans) / 1e3,
+            "busy_ms": busy, "idle_share": 1 - busy / wall, "spans": spans}
 
 
 class StageTimer:

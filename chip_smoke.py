@@ -50,8 +50,26 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               (torch_golden.json "cases"), bit-exact
   9. dist     two processes on the one card (gloo, block stripes): rank 0's
               container equals the single-process one, both decode it
-The line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.  `--dist-rank` runs one process of phase 9.
+ 10. cli      `python -m bmh_tpu_torch` children on the card: compress of the
+              stream (golden SHA-256), again with BMH_PALLAS_SORT=1,
+              decompress + verify, info, bench without a corpus (exit 1);
+              each child's launch counts
+ 11. stream   compress --resumable's writer on 4 MiB beside compress_file
+              (MB/s); cut after block 5 plus torn bytes, it resumes from 5,
+              its blocks equal the one-shot container's, it decodes
+ 12. oracle   64 KiB: the oracle backend's container equals the card's, and
+              each backend decodes the other's
+ 13. bench    bench.run_synthetic(total_mb=16) at BMH_INFLIGHT 1 and 4,
+              bit-exact
+ 14. data-    make_roundtrip_step on a one-process NCCL group, 8 x 128 KiB
+     parallel with a ragged last block: rows, total and bits checked; K1-K4
+              launched and each equal to its plain version at the step's
+              shapes (256-bit chunks, MTF chunk 128); then dryrun_multichip(1)
+Each phase after the main path's reads its own launch counts, set to 0
+just before it; they go beside the main path's in the kernels line
+(launches_by_run).  The line before the last is the kernels JSON; the last
+line is {"ok": true, "device": {...}}.  `--dist-rank` runs one process of
+phase 9.
 """
 
 from __future__ import annotations
@@ -116,10 +134,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def capture_kernel_inputs(bt, blob: bytes) -> dict:
-    """Decompress `blob` once with every kernel wrapper recording its first
-    call's arguments (cloned), so the comparisons run at the shapes the
-    main path gives each kernel (K4's include the hop the path chose)."""
+def capture_kernel_inputs(fn):
+    """Run fn() with the wrappers of K1-K4 recording their first call's
+    arguments (cloned), so the comparisons run at the shapes the path gives
+    each kernel (K4's include the hop the path chose).  Returns (the
+    captured arguments by kernel, fn's result)."""
     from bmh_tpu_torch.ops import decode_kernels, ibwt_kernel, imtf_kernel
 
     captured: dict = {}
@@ -137,12 +156,12 @@ def capture_kernel_inputs(bt, blob: bytes) -> dict:
     try:
         for (mod, name), orig in zip(patched, originals):
             setattr(mod, name, recorder(name, orig))
-        bt.decompress_bytes(blob, device="cuda")
+        result = fn()
     finally:
         for (mod, name), orig in zip(patched, originals):
             setattr(mod, name, orig)
     torch.cuda.synchronize()
-    return captured
+    return captured, result
 
 
 def capture_sort_inputs(bt, data: bytes) -> dict:
@@ -232,7 +251,8 @@ def walk_modes(bt, data: bytes, cap: dict, card: str) -> None:
 
     small = bt.compress_bytes(data[: 32 * (BLOCK // 2)], block_size=BLOCK // 2,
                               device="cuda")
-    t64k, s64k, steps64k, hop64k = capture_kernel_inputs(bt, small)["ibwt_walk"]
+    t64k, s64k, steps64k, hop64k = capture_kernel_inputs(
+        lambda: bt.decompress_bytes(small, device="cuda"))[0]["ibwt_walk"]
     require(hop64k == ibwt_kernel.HOP and t64k.shape[1] == BLOCK // 2,
             f"the 64 KiB path did not take the composed walk (hop {hop64k})")
     table, starts, steps, _ = cap["ibwt_walk"]
@@ -327,7 +347,7 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
     from bmh_tpu_torch.ops import decode_kernels as dk
     from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
 
-    cap = capture_kernel_inputs(bt, blob)
+    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
     sorts = capture_sort_inputs(bt, head)
     require((32, BLOCK) in sorts, f"no (32, {BLOCK}) K5 call captured: "
                                   f"{sorted(sorts)}")
@@ -488,7 +508,7 @@ def long_chunks(bt, data: bytes, card: str) -> None:
     default_bits = config.DEFAULT.decode_chunk_bits
     config.DEFAULT.decode_chunk_bits = 65536
     try:
-        cap = capture_kernel_inputs(bt, blob)
+        cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
         _build.reset_launches()
         out = bt.decompress_bytes(blob, device="cuda")
         launches = dict(_build.LAUNCHES)
@@ -545,31 +565,22 @@ def mutate_rle_len(blob: bytes, delta: int) -> bytes:
 
 
 def device_profile(fn) -> dict:
-    """fn() under torch.profiler: wall ms, device ms (the card's kernels,
-    copies and fills summed over every stream), busy ms (the union of
-    their intervals: work on several streams may overlap), idle share
-    1 - busy / wall, and the five names of most device time."""
+    """fn() under torch.profiler (utils/tracing.device_profile): wall ms,
+    device ms, busy ms and idle share, and the five names of most device
+    time; fails if the card did nothing or was busier than the wall."""
     from bmh_tpu_torch.utils import tracing
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    spans = tracing.device_activity(prof)
+    prof = tracing.device_profile(fn)
+    spans = prof.pop("spans")
     require(bool(spans), "the profiler saw no work on the card")
-    busy = tracing.busy_ms(spans)
-    require(busy <= wall, f"the card was busy {busy:.3f} ms in a {wall:.3f} ms "
-                          "call: annotated ranges were counted as work")
+    require(prof["busy_ms"] <= prof["prof_wall_ms"],
+            f"the card was busy {prof['busy_ms']:.3f} ms in a "
+            f"{prof['prof_wall_ms']:.3f} ms call: annotated ranges were counted as work")
     by_name: dict = {}
     for name, a, b in spans:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"prof_wall_ms": wall, "device_ms": sum(by_name.values()),
-            "busy_ms": busy, "idle_share": 1 - busy / wall,
-            "top": [[k[:60], v] for k, v in top]}
+    prof["top"] = [[k[:60], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]]
+    return prof
 
 
 def inflight_phase(bt, data: bytes, golden: dict | None, card: str) -> None:
@@ -756,6 +767,276 @@ def dist_phase(bt, data: bytes, card: str) -> None:
           f"{wall:.1f} s with the processes' start", flush=True)
 
 
+K1_K4 = ("gap_decode_phase_a", "gap_decode_phase_b", "imtf_chunks", "ibwt_walk")
+
+# python -m bmh_tpu_torch, with the child's kernel launch counts (set to 0
+# at its start) printed to stderr as its last line when it exits
+COUNTING_MAIN = (
+    "import atexit, json, runpy, sys\n"
+    "from bmh_tpu_torch.ops import _build\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(_build.LAUNCHES), "
+    "file=sys.stderr, flush=True))\n"
+    "runpy.run_module('bmh_tpu_torch', run_name='__main__', alter_sys=True)\n")
+
+
+def launched(launches: dict, names=K1_K4) -> bool:
+    return all(launches[k] > 0 for k in names)
+
+
+def cli_phase(data: bytes, golden: dict | None, card: str) -> dict:
+    """`python -m bmh_tpu_torch` in child processes on the card: compress
+    the stream at 128 KiB blocks (golden SHA-256), again with
+    BMH_PALLAS_SORT=1, decompress and verify, info, and bench without a
+    corpus (exit 1).  Returns each verb's launch counts."""
+    t0 = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as wd:
+        wd = Path(wd)
+        (wd / "stream").write_bytes(data)
+
+        def run(label, args, expect=0, **env):
+            t = time.perf_counter()
+            p = subprocess.run([sys.executable, "-c", COUNTING_MAIN, *map(str, args)],
+                               cwd=ROOT, env=dict(os.environ, **env), capture_output=True,
+                               text=True, timeout=600)
+            secs = time.perf_counter() - t
+            require(p.returncode == expect, f"[cli] {label} exited {p.returncode}, "
+                                            f"not {expect}:\n{p.stdout}\n{p.stderr}")
+            tail = [ln for ln in p.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+            counts[label] = json.loads(tail[-1][len("LAUNCHES "):])
+            out = (p.stdout.strip().splitlines() or [""])[-1]
+            print(f"[cli] {label}: exit {p.returncode} in {secs:.1f} s, launches "
+                  f"{counts[label]}: {out}", flush=True)
+            return p
+
+        block = ["--block-size", str(BLOCK)]
+        run("compress", ["compress", wd / "stream", wd / "a.bzt", *block])
+        run("compress BMH_PALLAS_SORT=1",
+            ["compress", wd / "stream", wd / "k5.bzt", *block], BMH_PALLAS_SORT="1")
+        require(counts["compress BMH_PALLAS_SORT=1"]["sort3"] > 0,
+                "the CLI compress with BMH_PALLAS_SORT=1 launched no sort3")
+        for name in ("a.bzt", "k5.bzt"):
+            sha = hashlib.sha256((wd / name).read_bytes()).hexdigest()
+            require(golden is None or sha == golden["container_sha256"],
+                    f"[cli] {name} differs from bmh_tpu's recorded container")
+        run("decompress", ["decompress", wd / "a.bzt", wd / "out"])
+        require(launched(counts["decompress"]),
+                f"the CLI decompress missed a kernel: {counts['decompress']}")
+        p = run("verify", ["verify", wd / "stream", wd / "out"])
+        require(p.stdout.strip() == "success", "[cli] verify did not print success")
+        run("info", ["info", wd / "a.bzt"])
+        p = run("bench without a corpus", ["bench"], expect=1,
+                BMH_CORPUS_DIR=str(wd / "absent"))
+        require("no corpus found" in p.stderr, "[cli] bench without a corpus: "
+                                               "no message on stderr")
+    print(f"[cli] {card}: golden SHA-256 with and without K5, bit-exact, "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def stream_phase(bt, data: bytes, card: str) -> dict:
+    """compress --resumable's writer on the stream's first 4 MiB, beside
+    compress_file's MB/s; the file cut after block 5 plus three bytes of
+    block 6 resumes from 5 and ends with the one-shot container's blocks;
+    the result decodes bit-exact.  Returns the decode's launch counts."""
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.utils import container as C
+    from bmh_tpu_torch.utils.stream import compress_file_resumable
+
+    t0 = time.perf_counter()
+    part = data[: 4 << 20]
+    with tempfile.TemporaryDirectory() as wd:
+        src, one, res = (Path(wd) / n for n in ("in", "one.bzt", "res.bzt"))
+        src.write_bytes(part)
+        walls: dict = {"compress_file": [], "compress_file_resumable": []}
+        for _ in range(2):
+            res.unlink(missing_ok=True)
+            t = time.perf_counter()
+            bt.compress_file(str(src), str(one), block_size=BLOCK, device="cuda")
+            walls["compress_file"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            info = compress_file_resumable(str(src), str(res), block_size=BLOCK,
+                                           device="cuda")
+            walls["compress_file_resumable"].append(time.perf_counter() - t)
+            require(info["resumed_from"] == 0 and info["blocks"] == 32,
+                    f"[stream] fresh run: {info}")
+        blob = res.read_bytes()
+        raws = C.unpack_file(blob)[2]
+        cut = C.FILE_HEADER.size + sum(4 + len(r) for r in raws[:5]) + 3
+        res.write_bytes(blob[:cut])
+        t = time.perf_counter()
+        info = compress_file_resumable(str(src), str(res), block_size=BLOCK, device="cuda")
+        resume_s = time.perf_counter() - t
+        require(info["resumed_from"] == 5, f"[stream] resume: {info}")
+        blob = res.read_bytes()
+        require(C.unpack_file(blob)[2] == C.unpack_file(one.read_bytes())[2],
+                "[stream] the resumed file's blocks differ from the one-shot container's")
+        _build.reset_launches()
+        out = bt.decompress_bytes(blob, device="cuda")
+        launches = dict(_build.LAUNCHES)
+    require(out == part, "[stream] the resumed container does not decode bit-exact")
+    require(launched(launches), f"[stream] the decode missed a kernel: {launches}")
+    mb = len(part) / 1e6
+    print(f"[stream] {card}: {len(part)} bytes at {BLOCK}-byte blocks, compress MB/s "
+          f"(best of 2) compress_file {mb / min(walls['compress_file']):.3f}, "
+          f"compress_file_resumable {mb / min(walls['compress_file_resumable']):.3f}; "
+          f"runs s {walls}; resumed from block 5 in {resume_s:.3f} s, blocks equal "
+          f"the one-shot container's, decode bit-exact, launches {launches}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def oracle_phase(bt, data: bytes, card: str) -> dict:
+    """On 64 KiB of the stream the oracle backend's container equals the
+    card's, and each backend decodes the other's.  Returns the card
+    decode's launch counts."""
+    from bmh_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    part = data[: 1 << 16]
+    t = time.perf_counter()
+    oracle = bt.compress_bytes(part, block_size=BLOCK, backend="oracle")
+    o_s = time.perf_counter() - t
+    card_blob = bt.compress_bytes(part, block_size=BLOCK, device="cuda")
+    require(oracle == card_blob, "[oracle] the oracle's container differs from the card's")
+    _build.reset_launches()
+    out = bt.decompress_bytes(oracle, device="cuda")
+    launches = dict(_build.LAUNCHES)
+    require(out == part and launched(launches),
+            f"[oracle] the card did not decode the oracle's container ({launches})")
+    t = time.perf_counter()
+    require(bt.decompress_bytes(card_blob, backend="oracle") == part,
+            "[oracle] the oracle did not decode the card's container")
+    print(f"[oracle] {card}: {len(part)} -> {len(oracle)} bytes, containers equal, "
+          f"cross-decoded, launches {launches}; oracle compress {o_s:.3f} s, "
+          f"decompress {time.perf_counter() - t:.3f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def bench_phase(card: str) -> dict:
+    """bench.run_synthetic(total_mb=16) at BMH_INFLIGHT 1 and 4: each
+    record bit-exact.  Returns the launch counts at each depth."""
+    from bmh_tpu_torch import bench
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.utils import config
+
+    t0 = time.perf_counter()
+    counts = {}
+    for depth in (1, 4):
+        config.DEFAULT.inflight = depth
+        _build.reset_launches()
+        rec = bench.run_synthetic(total_mb=16, device="cuda")
+        counts[f"bench inflight {depth}"] = dict(_build.LAUNCHES)
+        require(rec["bit_exact"] is True, f"[bench] inflight {depth}: not bit-exact")
+        require(rec["inflight"] == depth and rec["device_ms"] > 0,
+                f"[bench] inflight {depth}: record {rec}")
+        print(f"[bench] inflight {depth} {card}: {json.dumps(rec)}", flush=True)
+    config.DEFAULT.inflight = 4
+    print(f"[bench] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def dataparallel_phase(bt, data: bytes, card: str) -> dict:
+    """make_roundtrip_step on a one-process NCCL group over 8 blocks of
+    128 KiB of the stream with a ragged last block: the total, every row,
+    and the bits against the tables' lengths over the histograms; K1-K4
+    launched, each equal to its plain version on the step's captured inputs
+    (256-bit chunks, MTF chunk 128) and timed there; the step's wall and
+    device ms; then dryrun_multichip(1).  NCCL takes one process per card,
+    so on one card the group has one process.  Returns launch counts."""
+    import torch.distributed as dist
+
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.ops import decode_kernels as dk
+    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
+    from bmh_tpu_torch.parallel import dataparallel as tdp
+    from bmh_tpu_torch.parallel import mesh as tmesh
+
+    t0 = time.perf_counter()
+    nmax, b = BLOCK, 8
+    batch = np.frombuffer(data[: b * nmax], np.uint8).reshape(b, nmax).copy()
+    ns = np.full(b, nmax, dtype=np.int64)
+    ns[-1] = nmax - 12345
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    counts = {}
+    try:
+        mesh = tmesh.make_mesh(1, device="cuda")
+        freqs = tdp.make_sharded_stage1(mesh, nmax)(batch, ns)[2].cpu().numpy()
+        tbl = tdp.host_tables(freqs)
+        step = tdp.make_roundtrip_step(mesh, nmax)
+        args = (batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        _build.reset_launches()
+        cap, (out, total_ok, bits) = capture_kernel_inputs(lambda: step(*args))
+        counts["dataparallel step"] = dict(_build.LAUNCHES)
+        require(launched(counts["dataparallel step"]),
+                f"[dataparallel] the step missed a kernel: {counts['dataparallel step']}")
+        require(int(total_ok) == int(ns.sum()),
+                f"[dataparallel] total_ok {int(total_ok)} != {int(ns.sum())}")
+        out = out.cpu().numpy()
+        require(all((out[r, : ns[r]] == batch[r, : ns[r]]).all() for r in range(b)),
+                "[dataparallel] a decoded row differs from its input")
+        require(np.array_equal(bits.cpu().numpy(), (freqs * tbl["enc_len"]).sum(1)),
+                "[dataparallel] all_bits differ from the tables' bit counts")
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        prof = device_profile(lambda: step(*args))
+        print(f"[dataparallel] step {card}: {b} x {nmax} (last {int(ns[-1])}), "
+              f"chunk_bits 256, mtf_chunk 128: total_ok {int(total_ok)}, rows and bits "
+              f"equal; wall ms {statistics.median(walls):.3f} (median of 3, runs {walls}); "
+              f"profiled {json.dumps(prof)}; launches {counts['dataparallel step']}",
+              flush=True)
+
+        wext, count_t, chunk_bits, maxl = cap["phase_a"]
+        wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
+        (codes_tm,) = cap["imtf_chunks"]
+        table, starts, steps, hop = cap["ibwt_walk"]
+        require((chunk_bits, cb_b) == (256, 256),
+                f"[dataparallel] chunk bits {chunk_bits}, {cb_b}, not 256")
+        cases = (
+            ("gap_decode_phase_a", lambda: dk.phase_a(wext, count_t, chunk_bits, maxl),
+             lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl), wext),
+            ("gap_decode_phase_b", lambda: dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b),
+             lambda: dk.phase_b_plain(wext_b, count_b, entry, cb_b, maxl_b), wext_b),
+            ("imtf_chunks", lambda: imtf_kernel.imtf_chunks(codes_tm),
+             lambda: imtf_kernel.imtf_chunks_plain(codes_tm), codes_tm),
+            ("ibwt_walk", lambda: ibwt_kernel.ibwt_walk(table, starts, steps, hop),
+             lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1), table))
+        for name, kernel, plain, shape_of in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"[dataparallel] {name} disagrees with its plain version at the "
+                    "step's shapes")
+            print(f"[dataparallel] {name} at the step's {list(shape_of.shape)} "
+                  f"(maxl {maxl}, hop {hop}, {steps} steps), {card}: equal=True "
+                  f"ms={cuda_ms(kernel, 20):.4f}", flush=True)
+
+        _build.reset_launches()
+        t = time.perf_counter()
+        tdp.dryrun_multichip(1, device="cuda")
+        counts["dataparallel dryrun"] = dict(_build.LAUNCHES)
+        require(launched(counts["dataparallel dryrun"]),
+                f"[dataparallel] the dry run missed a kernel: {counts['dataparallel dryrun']}")
+        print(f"[dataparallel] dryrun_multichip(1) {card}: passed in "
+              f"{time.perf_counter() - t:.1f} s, launches {counts['dataparallel dryrun']}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[dataparallel] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -927,6 +1208,18 @@ def main() -> None:
     inflight_phase(bt, data, golden if check_golden else None, card)
     blocks_phase(bt, data, golden if check_golden else None, card)
     dist_phase(bt, data, card)
+
+    # 10-14. the rest of bmh_tpu: the command line, the resumable writer,
+    #        the oracle backend, the bench, the block-parallel step; each
+    #        path's launches, counted from 0 just before it, go beside the
+    #        main path's in the kernels line
+    paths = cli_phase(data, golden if check_golden else None, card)
+    paths["stream decode"] = stream_phase(bt, data, card)
+    paths["oracle container decode"] = oracle_phase(bt, data, card)
+    paths.update(bench_phase(card))
+    paths.update(dataparallel_phase(bt, data, card))
+    for row in kernels:
+        row["launches_by_run"].update({label: c[row["name"]] for label, c in paths.items()})
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -365,3 +365,69 @@ def test_second_card(cuda, monkeypatch):
         assert bt.decompress_bytes(blob, device=dev) == data
     assert pipeline.LAST_DISPATCH["compress_ndev"] > 1
     assert pipeline.LAST_DISPATCH["decompress_ndev"] > 1
+
+
+def test_cli_and_resumable_roundtrip_on_the_card(cuda, tmp_path, capsys):
+    """The command line on the card (its default device): compress, the
+    resumable compress, decompress and verify; both containers equal the
+    CPU's."""
+    from bmh_tpu_torch import cli
+    from bmh_tpu_torch.utils import container
+
+    data = _text(300000, 11)
+    src = tmp_path / "in.txt"
+    src.write_bytes(data)
+    bs = ["--block-size", "65536"]
+    assert cli.main(["compress", str(src), str(tmp_path / "a.bzt"), *bs]) == 0
+    assert cli.main(["compress", str(src), str(tmp_path / "s.bzt"), *bs, "--resumable"]) == 0
+    assert cli.main(["decompress", str(tmp_path / "s.bzt"), str(tmp_path / "out")]) == 0
+    assert cli.main(["verify", str(src), str(tmp_path / "out")]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "success"
+    one_shot = (tmp_path / "a.bzt").read_bytes()
+    assert one_shot == bt.compress_bytes(data, block_size=65536, device="cpu")
+    assert (container.unpack_file((tmp_path / "s.bzt").read_bytes())[2]
+            == container.unpack_file(one_shot)[2])
+
+
+def test_oracle_containers_equal_the_cards(cuda):
+    rng = np.random.default_rng(12)
+    data = _text(50000, 12) + bytes(rng.integers(0, 256, 15000, dtype=np.uint8))
+    blob = bt.compress_bytes(data, block_size=32768, backend="oracle")
+    assert blob == bt.compress_bytes(data, block_size=32768, device=cuda)
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    assert bt.decompress_bytes(blob, backend="oracle") == data
+
+
+def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
+    """make_roundtrip_step on a one-process NCCL group: every row decodes,
+    the bits are the tables' lengths over the histograms, and K1-K4 launch
+    (256-bit chunks, MTF chunk 128)."""
+    import torch.distributed as dist
+
+    from bmh_tpu_torch.parallel import dataparallel as tdp
+    from bmh_tpu_torch.parallel import mesh as tmesh
+
+    nmax, b = 16384, 4
+    buf = _text(b * nmax, 13)
+    batch = np.frombuffer(buf, np.uint8).reshape(b, nmax).copy()
+    ns = np.full(b, nmax, np.int64)
+    ns[-1] = nmax - 999
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh(device="cuda")
+        freqs = tdp.make_sharded_stage1(mesh, nmax)(batch, ns)[2].cpu().numpy()
+        tbl = tdp.host_tables(freqs)
+        _build.reset_launches()
+        out, total_ok, bits = tdp.make_roundtrip_step(mesh, nmax)(
+            batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert all(_build.LAUNCHES[k] > 0 for k in ("gap_decode_phase_a", "gap_decode_phase_b",
+                                                "imtf_chunks", "ibwt_walk"))
+    assert int(total_ok) == int(ns.sum())
+    assert np.array_equal(bits.cpu().numpy(), (freqs * tbl["enc_len"]).sum(1))
+    out = out.cpu().numpy()
+    for row in range(b):
+        assert (out[row, : ns[row]] == batch[row, : ns[row]]).all()
