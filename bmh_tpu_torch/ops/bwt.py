@@ -320,6 +320,31 @@ def bwt_finish_cp(data: torch.Tensor, n: torch.Tensor, rank: torch.Tensor,
     return last, shift, cps, aperiodic
 
 
+def _bwt_ranks(data: torch.Tensor, n: torch.Tensor):
+    """The full-rounds ranks and the final order of rotations: by rank,
+    ties by index (stable; equal full rotations).  Returns (rank, order,
+    real mask, pos), each (B, Nmax)."""
+    b, nmax = data.shape
+    pos = torch.arange(nmax, device=data.device).expand(b, nmax)
+    rank = bwt_rounds(data, n)[0]
+    order = _stable_sort3(rank, pos, pos)[2]
+    return rank, order, pos < n[:, None], pos
+
+
+def bwt_forward(data: torch.Tensor, n: torch.Tensor):
+    """Cyclic-rotation BWT without checkpoints, as bmh_tpu's bwt_forward.
+
+    data (B, Nmax) uint8, first n[b] bytes of row b valid.  Returns (last
+    (B, Nmax) uint8, zero past n; shift (B,) int64, the sorted position of
+    rotation 0)."""
+    nmax = data.shape[1]
+    _, order, real, pos = _bwt_ranks(data, n)
+    prev = torch.where(order == 0, n[:, None] - 1, order - 1).clamp(0, nmax - 1)
+    last = torch.where(real, torch.gather(data, 1, prev), 0).to(torch.uint8)
+    shift = torch.where(order == 0, pos, 0).sum(dim=1)
+    return last, shift
+
+
 def bwt_forward_cp(data: torch.Tensor, n: torch.Tensor, stride: int):
     """BWT forward with inverse-walk checkpoints by the full-rounds program.
 

@@ -3,8 +3,9 @@ device-time profile of the whole 9 MiB smoke stream, on one CUDA card.
 
 The compress table holds both BWT programs (full rounds; the sparse/
 adaptive program's rounds to the handoff gap and its whole rank
-computation) and is taken twice, the second time with BMH_PALLAS_SORT on
-(the BWT sorts through kernel K5).
+computation) and the forward BWT without checkpoints (bwt_forward, as
+bmh_tpu's profiler times its BWT stage).  It is taken twice, the second
+time with BMH_PALLAS_SORT on (the BWT sorts through kernel K5).
 
     python -m bmh_tpu_torch.tools.profile_stages [--seed 0] [--out PATH]
 
@@ -65,6 +66,7 @@ def compress_stages(blocks, dev) -> dict:
     ms = {}
     # full-rounds program's BWT, then the sparse/adaptive program's
     _, ms["bwt_rounds_full"] = _timed(lambda: bwt.bwt_rounds(data, n))
+    _, ms["bwt_forward"] = _timed(lambda: bwt.bwt_forward(data, n))
     (_, tied, _, _), ms[f"bwt_rounds_to_h{h_stop}"] = _timed(
         lambda: bwt.bwt_rounds(data, n, h_stop))
     ms["tied_at_handoff"] = int(tied.sum())

@@ -9,26 +9,34 @@ TEXT_BYTES = 8 << 20
 RANDOM_BYTES = 1 << 20
 
 
-def smoke_input(seed: int) -> bytes:
-    """Seeded text-like stream (Zipf-weighted words over a generated
-    vocabulary, spaces and newlines) followed by seeded random bytes.
-    Uses only Generator.integers / .random, whose streams numpy keeps
-    stable."""
+def smoke_input(seed: int, text_bytes: int = TEXT_BYTES,
+                random_bytes: int = RANDOM_BYTES) -> bytes:
+    """Seeded text-like stream of `text_bytes` (Zipf-weighted words over a
+    generated vocabulary, spaces and newlines) followed by `random_bytes`
+    seeded random bytes.  The defaults give the 9 MiB stream whose
+    containers tests/data/torch_golden.json records.  Uses only
+    Generator.integers / .random, whose streams numpy keeps stable."""
     rng = np.random.default_rng(seed)
     vocab_n = 6000
     lens = rng.integers(1, 11, vocab_n)
-    letters = rng.integers(97, 123, int(lens.sum())).astype(np.uint8).tobytes()
+    letters = rng.integers(97, 123, int(lens.sum())).astype(np.uint8)
     offs = np.concatenate([[0], np.cumsum(lens)])
-    vocab = [letters[offs[i]:offs[i + 1]] for i in range(vocab_n)]
     cdf = np.cumsum(1.0 / np.arange(1, vocab_n + 1) ** 1.1)
     cdf /= cdf[-1]
-    n_words = TEXT_BYTES // 5
-    picks = np.searchsorted(cdf, rng.random(n_words), side="right")
-    seps = np.where(rng.random(n_words) < 1 / 12, b"\n", b" ")
-    text = b"".join(vocab[min(p, vocab_n - 1)] + s for p, s in zip(picks, seps))
-    assert len(text) >= TEXT_BYTES, "vocabulary too short for the text size"
-    rnd = rng.integers(0, 256, RANDOM_BYTES, dtype=np.uint8).tobytes()
-    return text[:TEXT_BYTES] + rnd
+    n_words = text_bytes // 5
+    picks = np.minimum(np.searchsorted(cdf, rng.random(n_words), side="right"),
+                       vocab_n - 1)
+    seps = np.where(rng.random(n_words) < 1 / 12, ord("\n"), ord(" ")).astype(np.uint8)
+    # the words and their separators back to back, built by index arithmetic
+    seg = lens[picks] + 1
+    assert int(seg.sum()) >= text_bytes, "vocabulary too short for the text size"
+    word = np.repeat(np.arange(n_words), seg)[:text_bytes]
+    within = np.arange(word.size) - (np.cumsum(seg) - seg)[word]
+    # (at a separator the index may run one past the letters: clamp it)
+    src = np.minimum(offs[picks][word] + within, letters.size - 1)
+    text = np.where(within == seg[word] - 1, seps[word], letters[src])
+    rnd = rng.integers(0, 256, random_bytes, dtype=np.uint8).tobytes()
+    return text.tobytes() + rnd
 
 
 def phase_a_hostile_cases(seed: int, nc: int) -> list[tuple]:
@@ -118,3 +126,17 @@ def imtf_hostile_cases(seed: int, m: int, k: int) -> list[tuple]:
     return [("zeros", np.zeros((m, k), np.int32)),
             ("all_255", np.full((m, k), 255, np.int32)),
             ("random", rng.integers(0, 256, (m, k)).astype(np.int32))]
+
+
+def fibonacci_stream(k: int, seed: int) -> np.ndarray:
+    """A shuffled stream of k RLE0 symbols with Fibonacci counts 1, 1, 2,
+    3, 5, ...: the histogram whose Huffman code is deepest for its total
+    (k - 1 bits).  k = 26 gives 317,810 symbols and a 25-bit code, k = 29
+    1,346,268 symbols and a 28-bit code.  The symbols are k distinct
+    values of 0..256 in seeded order.  Returns (F(k+2) - 1,) int64."""
+    rng = np.random.default_rng(seed)
+    counts = [1, 1]
+    while len(counts) < k:
+        counts.append(counts[-1] + counts[-2])
+    syms = rng.choice(257, k, replace=False)
+    return rng.permutation(np.repeat(syms, counts[:k])).astype(np.int64)

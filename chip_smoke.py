@@ -22,7 +22,9 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               64-bit chunks; K2 where the clip fires, under the all-zero
               table, at maxl = 8 with longer counts, on codes of up to 31
               bits, under a table per chunk, at 32-, 64- and 544-bit
-              chunks; K3 on all-zero, all-255 and random codes.  bound_ms
+              chunks; K3 on all-zero, all-255 and random codes.  K1 and K2
+              on bitpacked streams whose codes reach 25 and 28 bits
+              (utils/synth.fibonacci_stream), decoded back.  bound_ms
               counts the least work any implementation needs
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
      trip     decompress at 128 KiB on the card, with default knobs, with
@@ -65,11 +67,20 @@ Phases, each of which raises (non-zero exit) on any mismatch:
      parallel with a ragged last block: rows, total and bits checked; K1-K4
               launched and each equal to its plain version at the step's
               shapes (256-bit chunks, MTF chunk 128); then dryrun_multichip(1)
+ 15. max-     bmh_tpu's largest block: the stream at 2 MiB blocks, with and
+     block    without BMH_PALLAS_SORT (bmh_tpu's SHA-256, torch_golden.json
+              case blocks_2mib), decoded with BMH_LF2 on and off; K1-K4
+              against their plain versions at the 2^21 batch's shapes; peak
+              memory.  Its largest dispatch: 64 MiB of seeded text as one
+              dispatch of 32 x 2 MiB at BMH_INFLIGHT 1 and 4, bit-exact;
+              wall ms, MB/s, peak memory of each direction
+ 16. micro-   bmh_tpu_torch.tools.microbench, every case at 3 timed calls;
+     bench    its agreement checks must hold; its JSON line
 Each phase after the main path's reads its own launch counts, set to 0
 just before it; they go beside the main path's in the kernels line
-(launches_by_run).  The line before the last is the kernels JSON; the last
-line is {"ok": true, "device": {...}}.  `--dist-rank` runs one process of
-phase 9.
+(launches_by_run).  `[seconds]` lines give each phase's time.  The line
+before the last is the kernels JSON; the last line is {"ok": true,
+"device": {...}}.  `--dist-rank` runs one process of phase 9.
 """
 
 from __future__ import annotations
@@ -98,6 +109,19 @@ PEAK_OPS_PER_S = 67e12
 # clock cycles of the sleep kernel that cuda_ms queues its calls behind
 # (about 10 ms)
 HOLD_CYCLES = 20_000_000
+
+
+class Clock:
+    """Prints the seconds each phase took, as `[seconds] phase: s`."""
+
+    def __init__(self):
+        self.start = self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[seconds] {phase}: {now - self.t:.1f} (total {now - self.start:.1f})",
+              flush=True)
+        self.t = now
 
 
 def card_line() -> str:
@@ -343,18 +367,13 @@ def hostile_kernel_inputs(card: str, shape: tuple[int, int]) -> None:
               flush=True)
 
 
-def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
+def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
+    """K1-K4 on the arguments captured from a decode (capture_kernel_inputs),
+    each with its plain version and the least work any implementation needs
+    for its bound."""
     from bmh_tpu_torch.ops import decode_kernels as dk
-    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
+    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
 
-    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
-    sorts = capture_sort_inputs(bt, head)
-    require((32, BLOCK) in sorts, f"no (32, {BLOCK}) K5 call captured: "
-                                  f"{sorted(sorts)}")
-    k5 = sorts[(32, BLOCK)]
-    sort_side_shapes(sorts, card)
-    walk_modes(bt, head, cap, card)
-    hostile_kernel_inputs(card, tuple(cap["imtf_chunks"][0].shape))
     wext, count_t, chunk_bits, maxl = cap["phase_a"]
     wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
     (codes_tm,) = cap["imtf_chunks"]
@@ -377,7 +396,8 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         kernel=lambda: dk.phase_a(wext, count_t, chunk_bits, maxl),
         plain=lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl),
         bytes=nbytes(wext, count_t) + 2 * 4 * 32 * nc, ops=k1_ops, reps=20,
-        chain=fsm_steps, chain_unit="bits of a chunk (one thread walks them)"))
+        chain=fsm_steps, chain_unit="bits of a chunk (one thread walks them)",
+        shapes=[list(wext.shape), list(count_t.shape)]))
     # K2: the least is the bytes, its output above all.  Its chain is a
     # codeword a turn: the call ends with the chunk that completes the most.
     k2_words = int((dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b) >= 0).sum(0).max())
@@ -389,7 +409,8 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         bytes=nbytes(wext_b, count_b, entry) + 4 * fsm_steps * nc,
         ops=14 * fsm_steps * nc, reps=20,
         chain=k2_words, chain_unit="codewords of the longest chunk (one thread decodes them)",
-        fill=lambda: torch.full((fsm_steps, nc), -1, dtype=torch.int32, device="cuda")))
+        fill=lambda: torch.full((fsm_steps, nc), -1, dtype=torch.int32, device="cuda"),
+        shapes=[list(wext_b.shape), list(count_b.shape), list(entry.shape)]))
     # K3: the least is a constant per code (look up, move, store: 4).
     # Beside it, the serial shift's count (the sum of the codes on top), as
     # the bound was counted while the kernel shifted entry by entry.
@@ -404,8 +425,9 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         kernel=lambda: imtf_kernel.imtf_chunks(codes_tm),
         plain=lambda: imtf_kernel.imtf_chunks_plain(codes_tm),
         bytes=2 * nbytes(codes_tm) + 4 * 256 * k, ops=k3_ops, reps=20,
-        chain=k3_dense, chain_unit="non-zero codes of the densest lane"))
-    print(f"[kernels] operations counted for the bounds, least work / as the "
+        chain=k3_dense, chain_unit="non-zero codes of the densest lane",
+        shapes=[list(codes_tm.shape)]))
+    print(f"{tag} operations counted for the bounds, least work / as the "
           f"earlier kernels worked: phase_a {k1_ops} / {12 * k1_steps} "
           f"({k1_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
           f"{12 * k1_steps / PEAK_OPS_PER_S * 1e3:.4f} ms), imtf_chunks {k3_ops} / "
@@ -421,16 +443,16 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         kernel=lambda: ibwt_kernel.ibwt_walk(table, starts, steps, hop),
         plain=lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1),
         bytes=nbytes(table, starts) + b * kc * steps, ops=3 * b * kc * steps,
-        reps=20))
-    k5_bytes, k5_ops = sort_bound(k5[0])
-    cases.append(dict(
-        name="sort3", source="bmh_tpu_torch/csrc/sort3.cu",
-        replaces="bmh_tpu/ops/pallas_sort.py:149",
-        kernel=lambda: sort_kernel.sort3(*k5),
-        plain=lambda: sort_kernel.sort3_plain(*k5),
-        library=lambda: sort_library(*k5),
-        bytes=k5_bytes, ops=k5_ops, reps=10, shapes=[list(t.shape) for t in k5]))
+        reps=20, shapes=[list(table.shape), list(starts.shape)],
+        detail=f"{steps} steps a cursor, hop {hop}"))
+    return cases
 
+
+def hold(cases: list[dict], tag: str = "[kernels]") -> list[dict]:
+    """Each case's kernel against its plain version (exactly) on the card,
+    timed (mean of its warm calls) beside the plain version, its bound and
+    the library call where one exists.  Returns the kernels line's rows;
+    fails on the first disagreement."""
     rows = []
     for c in cases:
         got, want = c["kernel"](), c["plain"]()
@@ -450,23 +472,92 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
             "replaces": c["replaces"], "equal": equal, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "shapes": c.get("shapes") or [
-                list(t.shape) for t in cap[c["name"].replace("gap_decode_", "")]
-                if torch.is_tensor(t)],
+            "library_ms": library_ms, "shapes": c["shapes"],
         })
-        print(f"[kernels] {c['name']}: equal={equal} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.2f} library_ms={library_ms}", flush=True)
+        print(f"{tag} {c['name']} at {c['shapes']}{', ' + c['detail'] if 'detail' in c else ''}: "
+              f"equal={equal} ms={ms:.4f} plain_ms={plain_ms:.2f} "
+              f"bound_ms={max(t_bytes, t_ops):.4f} library_ms={library_ms}", flush=True)
         if "chain" in c:
-            print(f"[kernels] {c['name']}: a thread's dependent chain is "
+            print(f"{tag} {c['name']}: a thread's dependent chain is "
                   f"{c['chain']:.0f} {c['chain_unit']}, ms over them "
                   f"{ms * 1e6 / c['chain']:.1f} ns", flush=True)
         if "fill" in c:  # the least any kernel writing this output takes here
-            print(f"[kernels] {c['name']}: a fill of its output's bytes "
+            print(f"{tag} {c['name']}: a fill of its output's bytes "
                   f"(torch.full) ms={cuda_ms(c['fill'], c['reps']):.4f}", flush=True)
-        require(equal, f"{c['name']} disagrees with its plain version "
+        require(equal, f"{tag} {c['name']} disagrees with its plain version "
                        f"(max abs err {err})")
     return rows
+
+
+def long_codes(card: str) -> None:
+    """K1 and K2 on bitpacked streams whose Huffman codes reach 25 and 28
+    bits (utils/synth.fibonacci_stream: 26 and 29 symbols with Fibonacci
+    counts), encoded and decoded on the card by the port's ops: the decode
+    gives the stream back, and each kernel, at the maxl the staging gives
+    it, equals its plain version on the inputs captured from that decode."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.ops import decode_kernels as dk
+    from bmh_tpu_torch.ops import huffman
+    from bmh_tpu_torch.utils import synth
+
+    for k in (26, 29):
+        stream = torch.from_numpy(synth.fibonacci_stream(k, 0)).cuda()
+        m = stream.numel()
+        nmax = 1 << (m - 1).bit_length()
+        syms = torch.zeros((1, nmax), dtype=torch.int64, device="cuda")
+        syms[0, :m] = stream
+        mt = torch.tensor([m], device="cuda")
+        lens = huffman.code_lengths_device(huffman.histogram(syms, mt, 257))
+        words, bits = huffman.encode_bitpack(syms, mt, lens,
+                                             huffman.canonical_codes_device(lens))
+        nw = (int(bits) + 31) // 32
+        block = {"payload": words[0, :nw].cpu().numpy().astype(">u4").tobytes()
+                 [: (int(bits) + 7) // 8], "lens": lens[0].cpu().numpy().astype(np.uint8),
+                 "orig_len": m, "rle_len": m, "shift": 0}
+        tw, tl, tss, tssi, tsid, tms, _, _, maxl = pipeline._stage_flat_np([block], [0], 512)
+        tw, tl, tss, tssi, tsid, tms = (torch.from_numpy(x).cuda()
+                                        for x in (tw.view(np.int32), tl, tss, tssi, tsid, tms))
+        wext, count_t, sym_b = pipeline._tables(tw, tl, tsid, 512)
+        cap, out = capture_kernel_inputs(lambda: huffman.gap_decode_flat(
+            wext, count_t, tss, tssi, tsid, sym_b, tms, nmax, 512, maxl))
+        require(torch.equal(out[0, :m], stream),
+                f"the {k}-symbol Fibonacci stream does not decode back")
+        a_args, b_args = cap["phase_a"], cap["phase_b"]
+        require(all(torch.equal(g, w) for g, w in zip(dk.phase_a(*a_args),
+                                                      dk.phase_a_plain(*a_args)))
+                and torch.equal(dk.phase_b(*b_args), dk.phase_b_plain(*b_args)),
+                f"phase_a or phase_b disagrees with its plain version on the "
+                f"{int(lens.max())}-bit code")
+        print(f"[kernels] long codes: {k} symbols, {m} in the stream, longest code "
+              f"{int(lens.max())} bits, {int(bits)} bits, maxl {maxl}, wext "
+              f"{list(a_args[0].shape)}, {card}: decoded back, phase_a and phase_b "
+              f"equal their plain versions; phase_a ms="
+              f"{cuda_ms(lambda: dk.phase_a(*a_args), 20):.4f}, phase_b ms="
+              f"{cuda_ms(lambda: dk.phase_b(*b_args), 20):.4f}", flush=True)
+
+
+def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
+    from bmh_tpu_torch.ops import sort_kernel
+
+    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
+    sorts = capture_sort_inputs(bt, head)
+    require((32, BLOCK) in sorts, f"no (32, {BLOCK}) K5 call captured: "
+                                  f"{sorted(sorts)}")
+    k5 = sorts[(32, BLOCK)]
+    sort_side_shapes(sorts, card)
+    walk_modes(bt, head, cap, card)
+    hostile_kernel_inputs(card, tuple(cap["imtf_chunks"][0].shape))
+    long_codes(card)
+    cases = decode_cases(cap)
+    k5_bytes, k5_ops = sort_bound(k5[0])
+    cases.append(dict(
+        name="sort3", source="bmh_tpu_torch/csrc/sort3.cu",
+        replaces="bmh_tpu/ops/pallas_sort.py:149",
+        kernel=lambda: sort_kernel.sort3(*k5),
+        plain=lambda: sort_kernel.sort3_plain(*k5),
+        library=lambda: sort_library(*k5),
+        bytes=k5_bytes, ops=k5_ops, reps=10, shapes=[list(t.shape) for t in k5]))
+    return hold(cases)
 
 
 def long_chunks(bt, data: bytes, card: str) -> None:
@@ -948,8 +1039,6 @@ def dataparallel_phase(bt, data: bytes, card: str) -> dict:
     import torch.distributed as dist
 
     from bmh_tpu_torch.ops import _build
-    from bmh_tpu_torch.ops import decode_kernels as dk
-    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
     from bmh_tpu_torch.parallel import dataparallel as tdp
     from bmh_tpu_torch.parallel import mesh as tmesh
 
@@ -995,32 +1084,10 @@ def dataparallel_phase(bt, data: bytes, card: str) -> dict:
               f"profiled {json.dumps(prof)}; launches {counts['dataparallel step']}",
               flush=True)
 
-        wext, count_t, chunk_bits, maxl = cap["phase_a"]
-        wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
-        (codes_tm,) = cap["imtf_chunks"]
-        table, starts, steps, hop = cap["ibwt_walk"]
+        chunk_bits, cb_b = cap["phase_a"][2], cap["phase_b"][3]
         require((chunk_bits, cb_b) == (256, 256),
                 f"[dataparallel] chunk bits {chunk_bits}, {cb_b}, not 256")
-        cases = (
-            ("gap_decode_phase_a", lambda: dk.phase_a(wext, count_t, chunk_bits, maxl),
-             lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl), wext),
-            ("gap_decode_phase_b", lambda: dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b),
-             lambda: dk.phase_b_plain(wext_b, count_b, entry, cb_b, maxl_b), wext_b),
-            ("imtf_chunks", lambda: imtf_kernel.imtf_chunks(codes_tm),
-             lambda: imtf_kernel.imtf_chunks_plain(codes_tm), codes_tm),
-            ("ibwt_walk", lambda: ibwt_kernel.ibwt_walk(table, starts, steps, hop),
-             lambda: ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1), table))
-        for name, kernel, plain, shape_of in cases:
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                    f"[dataparallel] {name} disagrees with its plain version at the "
-                    "step's shapes")
-            print(f"[dataparallel] {name} at the step's {list(shape_of.shape)} "
-                  f"(maxl {maxl}, hop {hop}, {steps} steps), {card}: equal=True "
-                  f"ms={cuda_ms(kernel, 20):.4f}", flush=True)
+        hold(decode_cases(cap, "[dataparallel]"), "[dataparallel]")
 
         _build.reset_launches()
         t = time.perf_counter()
@@ -1034,6 +1101,147 @@ def dataparallel_phase(bt, data: bytes, card: str) -> dict:
     finally:
         dist.destroy_process_group()
     print(f"[dataparallel] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def maxblock_phase(bt, data: bytes, seed: int, golden: dict | None,
+                   card: str) -> dict:
+    """bmh_tpu's largest block (MAX_BLOCK_SIZE, 2 MiB) and its largest
+    dispatch (BMH_MAX_DISPATCH = 32 such blocks) on the card.
+
+    (a) The stream at 2 MiB blocks: its four text blocks batch at Nmax 2^21,
+    its random MiB at 2^20.  Compressed with default knobs and with
+    BMH_PALLAS_SORT=1, each container must carry bmh_tpu's SHA-256
+    (torch_golden.json case blocks_2mib); decoded with BMH_LF2 on and off,
+    bit-exact, K1-K4 launched; peak memory of each direction.  Then K1-K4 on
+    the inputs captured from the 2^21 batch's decode, each against its plain
+    version, timed there.
+    (b) 64 MiB of seeded text as one dispatch of 32 x 2 MiB at BMH_INFLIGHT
+    1 and 4: one container, bit-exact; wall ms, MB/s and peak memory of
+    each direction.
+    Returns the launches of each run, counted from 0 just before it."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.ops import _build, bwt, sort_kernel
+    from bmh_tpu_torch.utils import config, synth
+
+    t0 = time.perf_counter()
+    big = bt.api.MAX_BLOCK_SIZE
+    counts: dict = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        counts[label] = dict(_build.LAUNCHES)
+        return out, wall, torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+    want = golden["cases"]["blocks_2mib"] if golden is not None else None
+    blobs = {}
+    for sort3 in (False, True):
+        label = f"maxblock compress K5={int(sort3)}"
+        config.DEFAULT.pallas_sort = sort3
+        try:
+            blob, wall, peak, reserved = run(label, lambda: bt.compress_bytes(
+                data, block_size=big, device="cuda"))
+        finally:
+            config.DEFAULT.pallas_sort = False
+        sha = hashlib.sha256(blob).hexdigest()
+        require(want is None or (want["block_size"] == big and want["cursor_stride"] == 4096
+                                 and sha == want["container_sha256"]),
+                f"{label}: the container differs from bmh_tpu's recorded one")
+        blobs[sort3] = blob
+        print(f"[maxblock] {label} {card}: {len(data)} -> {len(blob)} bytes at "
+              f"{big}-byte blocks, sha256 {sha} (bmh_tpu's), {wall:.3f} ms, peak "
+              f"max_memory_allocated {peak} B (reserved {reserved} B), launches "
+              f"{counts[label]}", flush=True)
+    # why K5 launches so seldom here: the text batch's tied positions at the
+    # sparse handoff against its compact set (tier 1) and tier-2 set
+    arr = np.frombuffer(data, np.uint8)
+    text = bt.api._rle1_blocks([arr[i:i + big] for i in range(0, 4 * big, big)])[0]
+    nt = torch.tensor([x.size for x in text], device="cuda")
+    batch = torch.zeros((len(text), big), dtype=torch.uint8, device="cuda")
+    for i, x in enumerate(text):
+        batch[i, : x.size] = torch.from_numpy(x.copy())
+    tied = int(bwt.bwt_rounds(batch, nt, 1 << (config.DEFAULT.full_rounds + 1))[1].sum())
+    m_cap = pipeline._sparse_cap(len(text), big)
+    print(f"[maxblock] sort3 launches under BMH_PALLAS_SORT=1: "
+          f"{counts['maxblock compress K5=1']['sort3']}.  K5 takes rows of 2^10..2^"
+          f"{sort_kernel.MAX_N.bit_length() - 1}, as bmh_tpu's sort3 does; every "
+          f"doubling round here sorts rows of 2^21 or 2^20.  The text batch "
+          f"leaves {tied} positions tied at the sparse handoff: its tier-1 set "
+          f"holds {m_cap} (above the envelope, torch.sort), and only a tier-2 "
+          f"set of {m_cap // config.DEFAULT.tier2_div} (inside it) would reach K5; "
+          f"the random MiB's rows leave no tie to refine", flush=True)
+    for lf2 in (True, False):
+        label = f"maxblock decompress lf2={int(lf2)}"
+        config.DEFAULT.lf2 = lf2
+        try:
+            out, wall, peak, reserved = run(label, lambda: bt.decompress_bytes(
+                blobs[False], device="cuda"))
+        finally:
+            config.DEFAULT.lf2 = True
+        require(out == data, f"{label}: not bit-exact")
+        require(launched(counts[label]), f"{label} missed a kernel: {counts[label]}")
+        print(f"[maxblock] {label} {card}: bit-exact, {wall:.3f} ms, peak "
+              f"max_memory_allocated {peak} B (reserved {reserved} B), launches "
+              f"{counts[label]}", flush=True)
+    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blobs[False], device="cuda"))[0]
+    require(cap["ibwt_walk"][0].shape[1] == big,
+            f"the first decode batch is not at Nmax {big}: {list(cap['ibwt_walk'][0].shape)}")
+    rows = hold(decode_cases(cap, "[maxblock]"), "[maxblock]")
+    print(f"[maxblock] kernels at the 2 MiB shape {card}: {json.dumps(rows)}", flush=True)
+
+    stream = synth.smoke_input(seed, text_bytes=64 << 20, random_bytes=0)
+    mb = len(stream) / 1e6
+    blobs64 = {}
+    for depth in (1, 4):
+        config.DEFAULT.inflight = depth
+        c_label = f"maxblock 64 MiB compress inflight {depth}"
+        d_label = f"maxblock 64 MiB decompress inflight {depth}"
+        try:
+            blob, c_ms, c_peak, c_res = run(c_label, lambda: bt.compress_bytes(
+                stream, block_size=big, device="cuda"))
+            out, d_ms, d_peak, d_res = run(d_label, lambda: bt.decompress_bytes(
+                blob, device="cuda"))
+        finally:
+            config.DEFAULT.inflight = 4
+        blobs64[depth] = blob
+        require(out == stream, f"{d_label}: not bit-exact")
+        require(launched(counts[d_label]) and counts[d_label]["ibwt_walk"] == 1,
+                f"{d_label}: not one dispatch through every kernel: {counts[d_label]}")
+        print(f"[maxblock] 64 MiB, {len(stream) // big} x {big} in one dispatch, "
+              f"BMH_INFLIGHT {depth} "
+              f"{card}: {len(stream)} -> {len(blob)} bytes, bit-exact; compress "
+              f"{c_ms:.3f} ms ({mb / c_ms * 1e3:.3f} MB/s), peak max_memory_allocated "
+              f"{c_peak} B (reserved {c_res} B); decompress {d_ms:.3f} ms "
+              f"({mb / d_ms * 1e3:.3f} MB/s), peak max_memory_allocated {d_peak} B "
+              f"(reserved {d_res} B); launches {counts[c_label]} / {counts[d_label]}",
+              flush=True)
+    require(blobs64[1] == blobs64[4], "BMH_INFLIGHT changed the 64 MiB container")
+    torch.cuda.empty_cache()
+    print(f"[maxblock] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def microbench_phase(card: str) -> dict:
+    """bmh_tpu_torch.tools.microbench, every case once at 3 timed calls:
+    the checks it makes (the stable sorts and K5 give one order, both
+    placements the same bytes, the histograms agree, ...) must hold.
+    Returns its launch counts."""
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.tools import microbench
+
+    _build.reset_launches()
+    res = microbench.run(reps=3)
+    counts = {"microbench": dict(_build.LAUNCHES)}
+    bad = [(case, k) for case, r in res["cases"].items()
+           for k, ok in r.get("equal", {}).items() if not ok]
+    require(not bad, f"[microbench] formulations disagree: {bad}")
+    print(f"[microbench] {card}: {json.dumps(res)}", flush=True)
     return counts
 
 
@@ -1052,6 +1260,7 @@ def main() -> None:
     if args.dist_rank is not None:
         dist_worker(args.dist_rank, args.dist_port, args.dist_dir)
         return
+    clock = Clock()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {kind} | nvidia-smi: {card} | torch {torch.__version__} "
@@ -1081,9 +1290,12 @@ def main() -> None:
         require(in_sha == golden["input_sha256"],
                 "input stream differs from the one the golden digest was made from")
 
+    clock.lap("card, build, input")
+
     # 3. kernels, at the shapes of one real 32-block batch
     head = bt.compress_bytes(data[: 32 * BLOCK], block_size=BLOCK, device="cuda")
     kernels = kernel_phase(bt, head, data[: 32 * BLOCK], card)
+    clock.lap("kernels")
 
     # 4. round trip, default knobs, BMH_PALLAS_SORT on, BMH_LF2 off: counts
     #    set to 0 just before each run of the main path, read just after
@@ -1140,6 +1352,7 @@ def main() -> None:
               f"{mb / statistics.median(d_times):.3f} MB/s (median of 3 warm); "
               f"runs c={c_times} d={d_times}", flush=True)
     program_rates(bt, data, card)
+    clock.lap("roundtrip, programs")
 
     # 64 KiB blocks: the composed walk (BMH_LF2 on) and the one-row walk (off)
     part = data[: 4 << 20]
@@ -1161,6 +1374,7 @@ def main() -> None:
 
     # long decode chunks: K1 and K2 past 32768 bits, a 65536-bit round trip
     long_chunks(bt, data, card)
+    clock.lap("64 KiB blocks, long")
 
     # 5. routes: pathological + periodic blocks, and a single-symbol block
     rng = np.random.default_rng(args.seed)
@@ -1205,19 +1419,34 @@ def main() -> None:
 
     # 7-9. the dispatch layer: the in-flight window, the block sizes the main
     #      phases do not reach, two processes on the card
+    clock.lap("routes, hostile")
     inflight_phase(bt, data, golden if check_golden else None, card)
+    clock.lap("inflight")
     blocks_phase(bt, data, golden if check_golden else None, card)
+    clock.lap("blocks")
     dist_phase(bt, data, card)
+    clock.lap("dist")
 
     # 10-14. the rest of bmh_tpu: the command line, the resumable writer,
     #        the oracle backend, the bench, the block-parallel step; each
     #        path's launches, counted from 0 just before it, go beside the
     #        main path's in the kernels line
     paths = cli_phase(data, golden if check_golden else None, card)
+    clock.lap("cli")
     paths["stream decode"] = stream_phase(bt, data, card)
     paths["oracle container decode"] = oracle_phase(bt, data, card)
+    clock.lap("stream, oracle")
     paths.update(bench_phase(card))
+    clock.lap("bench")
     paths.update(dataparallel_phase(bt, data, card))
+    clock.lap("dataparallel")
+
+    # 15-16. bmh_tpu's largest block and dispatch; the microbench twins
+    paths.update(maxblock_phase(bt, data, args.seed, golden if check_golden else None,
+                                card))
+    clock.lap("maxblock")
+    paths.update(microbench_phase(card))
+    clock.lap("microbench")
     for row in kernels:
         row["launches_by_run"].update({label: c[row["name"]] for label, c in paths.items()})
 

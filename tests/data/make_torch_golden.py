@@ -1,7 +1,7 @@
 """Record bmh_tpu's container digests for chip_smoke.py's input stream.
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py [--seed 0]
-        [--cases main,blocks_1mib,blocks_100000,stride_64]
+        [--cases main,blocks_1mib,blocks_100000,stride_64,blocks_2mib]
 
 Compresses bmh_tpu_torch.utils.synth.smoke_input(seed) with bmh_tpu (the
 reference package, on the CPU) and writes the input's and the containers'
@@ -11,7 +11,11 @@ holds the port's containers to on the GPU:
   main           the whole stream at 128 KiB blocks (top-level keys);
   blocks_1mib    its first 2 MiB at 1 MiB blocks;
   blocks_100000  its first 2 MiB at 100000-byte blocks (no power of two);
-  stride_64      its first 2 MiB at 128 KiB blocks, BMH_CURSOR_STRIDE=64.
+  stride_64      its first 2 MiB at 128 KiB blocks, BMH_CURSOR_STRIDE=64;
+  blocks_2mib    the whole stream at 2 MiB blocks, bmh_tpu's largest
+                 (MAX_BLOCK_SIZE), run with BMH_MAX_DISPATCH=1 so that
+                 bmh_tpu holds one block at a time (the container does not
+                 depend on the dispatch size).
 
 Each case runs in a process of its own, because bmh_tpu reads the cursor
 stride when it is imported; --cases picks the ones to redo, and the file
@@ -30,12 +34,14 @@ ROOT = Path(__file__).resolve().parents[2]
 OUT = Path(__file__).resolve().parent / "torch_golden.json"
 BLOCK = 1 << 17
 HEAD = 2 << 20
-# case -> (input bytes, or None for the whole stream; block size; stride)
+# case -> (input bytes, or None for the whole stream; block size; stride;
+# further environment of the case's process)
 CASES = {
-    "main": (None, BLOCK, 4096),
-    "blocks_1mib": (HEAD, 1 << 20, 4096),
-    "blocks_100000": (HEAD, 100000, 4096),
-    "stride_64": (HEAD, BLOCK, 64),
+    "main": (None, BLOCK, 4096, {}),
+    "blocks_1mib": (HEAD, 1 << 20, 4096, {}),
+    "blocks_100000": (HEAD, 100000, 4096, {}),
+    "stride_64": (HEAD, BLOCK, 64, {}),
+    "blocks_2mib": (None, 1 << 21, 4096, {"BMH_MAX_DISPATCH": "1"}),
 }
 
 
@@ -48,7 +54,7 @@ def run_case(name: str, seed: int) -> dict:
     import bmh_tpu
     from bmh_tpu_torch.utils.synth import smoke_input
 
-    size, block, stride = CASES[name]
+    size, block, stride, _ = CASES[name]
     data = smoke_input(seed)[:size]
     blob = bmh_tpu.compress_bytes(data, block_size=block)
     assert bmh_tpu.decompress_bytes(blob) == data
@@ -76,7 +82,7 @@ def main() -> None:
         rec = {}
     for name in args.cases.split(","):
         env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   BMH_CURSOR_STRIDE=str(CASES[name][2]))
+                   BMH_CURSOR_STRIDE=str(CASES[name][2]), **CASES[name][3])
         out = subprocess.run([sys.executable, __file__, "--seed", str(args.seed),
                               "--one", name], env=env, check=True,
                              capture_output=True, text=True).stdout

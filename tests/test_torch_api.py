@@ -64,10 +64,9 @@ def test_many_uniform_and_files(tmp_path):
     assert 0 < info["header_size"] < info["encoded_file_size"]
 
 
-def test_out_of_slice_routes_raise():
-    """The single-symbol and periodic routes (once outside the port, now
-    ported): bmh_tpu's containers decode through them, and the port writes
-    the same containers."""
+def test_single_symbol_and_periodic_routes_match_bmh_tpu():
+    """The single-symbol and periodic routes: bmh_tpu's containers decode
+    through them, and the port writes the same containers."""
     refs = {}
     for data, bs in ((b"\x00" * 3, 2048), (b"\x05", 2048), (b"xyz" * 2000, 8192),
                      (b"xyz" * 700, 2100)):
@@ -180,3 +179,27 @@ def test_decode_chunk_bits_65536_matches_bmh_tpu(monkeypatch):
     want = bmh_tpu.decompress_bytes(ref)
     monkeypatch.setattr(tconfig.DEFAULT, "decode_chunk_bits", 65536)
     assert bt.decompress_bytes(ref, device="cpu") == want == data
+
+
+def test_smoke_input_sizes_keep_the_golden_stream():
+    """utils/synth.smoke_input's size keywords: the defaults give the 9 MiB
+    stream whose containers tests/data/torch_golden.json records (and the
+    first 2 MiB its 2 MiB cases'); other sizes give text of exactly that
+    many bytes (letters, spaces, newlines), then the random bytes."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from bmh_tpu_torch.utils import synth
+
+    golden = json.loads((Path(__file__).parent / "data" / "torch_golden.json").read_text())
+    data = synth.smoke_input(golden["seed"])
+    assert len(data) == golden["input_bytes"] == synth.TEXT_BYTES + synth.RANDOM_BYTES
+    assert hashlib.sha256(data).hexdigest() == golden["input_sha256"]
+    for case in golden["cases"].values():
+        head = data[: case["input_bytes"]]
+        assert hashlib.sha256(head).hexdigest() == case["input_sha256"]
+    small = synth.smoke_input(golden["seed"], text_bytes=5000, random_bytes=300)
+    assert len(small) == 5300
+    assert set(small[:5000]) <= set(b"abcdefghijklmnopqrstuvwxyz \n")
+    assert synth.smoke_input(golden["seed"], text_bytes=5000, random_bytes=0) == small[:5000]

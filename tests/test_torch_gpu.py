@@ -431,3 +431,43 @@ def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
     out = out.cpu().numpy()
     for row in range(b):
         assert (out[row, : ns[row]] == batch[row, : ns[row]]).all()
+
+
+def test_two_mib_block_decode_matches_plain(cuda, monkeypatch):
+    """bmh_tpu's largest block (2 MiB, Nmax 2^21): a container of one text
+    block and one random block decodes bit-exact on the card, with BMH_LF2
+    on and off, and K1-K4, on the arguments the decode gave them, equal
+    their plain versions exactly."""
+    from bmh_tpu_torch.ops import decode_kernels as dk
+
+    big = bt.api.MAX_BLOCK_SIZE
+    data = synth.smoke_input(0, text_bytes=big, random_bytes=1 << 19)
+    blob = bt.compress_bytes(data, block_size=big, device=cuda)
+    captured = {}
+    wrappers = [(dk, "phase_a"), (dk, "phase_b"), (imtf_kernel, "imtf_chunks"),
+                (ibwt_kernel, "ibwt_walk")]
+    for mod, name in wrappers:
+        orig = getattr(mod, name)
+
+        def rec(*args, _name=name, _orig=orig):
+            captured.setdefault(_name, [a.clone() if torch.is_tensor(a) else a
+                                        for a in args])
+            return _orig(*args)
+
+        monkeypatch.setattr(mod, name, rec)
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    monkeypatch.undo()
+    table, starts, steps, hop = captured["ibwt_walk"]
+    assert table.shape[1] == big and hop == ibwt_kernel.HOP
+    for got, want in (
+            (dk.phase_a(*captured["phase_a"]), dk.phase_a_plain(*captured["phase_a"])),
+            (dk.phase_b(*captured["phase_b"]), dk.phase_b_plain(*captured["phase_b"])),
+            (imtf_kernel.imtf_chunks(*captured["imtf_chunks"]),
+             imtf_kernel.imtf_chunks_plain(*captured["imtf_chunks"])),
+            (ibwt_kernel.ibwt_walk(table, starts, steps, hop),
+             ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1))):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    monkeypatch.setattr(config.DEFAULT, "lf2", False)
+    assert bt.decompress_bytes(blob, device=cuda) == data

@@ -65,6 +65,61 @@ def test_bwt_forward_cp_matches_jax(rows):
             np.testing.assert_array_equal(cps[i].numpy(), np.asarray(jc))
 
 
+def _bwt_forward_inputs(kind):
+    """tests/test_bwt.py's inputs by kind: the oracle cases (one byte, two
+    equal bytes, banana_bandana, periodic rows), random bytes at its lengths
+    (full and 4-symbol alphabets), and 0xFF runs against the 4-byte init
+    sentinel."""
+    rng = np.random.default_rng(1234)
+    if kind == "oracle_cases":
+        return [np.array([1], np.uint8), np.array([5, 5], np.uint8),
+                np.frombuffer(b"banana_bandana", np.uint8),
+                np.tile(np.arange(3, dtype=np.uint8), 11),
+                np.zeros(33, np.uint8), np.full(64, 7, np.uint8)]
+    if kind == "one_byte":
+        return [np.array([v], np.uint8) for v in (0, 0x7F, 0xFF)]
+    if kind == "ff_runs":
+        out = []
+        for n in (4, 5, 100, 1000):
+            x = rng.integers(0, 256, n).astype(np.uint8)
+            x[: min(8, n)] = 0xFF
+            x[-min(5, n):] = 0xFF
+            out += [x, np.full(n, 0xFF, np.uint8)]
+        return out
+    return [rng.integers(0, 4 if kind == "random_4sym" else 256, n).astype(np.uint8)
+            for n in (1, 2, 5, 100, 1000, 4096)]
+
+
+@pytest.mark.parametrize("kind", ["oracle_cases", "random", "random_4sym",
+                                  "ff_runs", "one_byte"])
+def test_bwt_forward_matches_jax(kind):
+    """bwt_forward (no checkpoints) against bmh_tpu's jitted bwt_forward,
+    every position of the last column and the shift, each row at its own
+    power-of-two bucket and all rows in one batch at the largest."""
+    cases = _bwt_forward_inputs(kind)
+    f = jax.jit(jbwt.bwt_forward)
+    want = []
+    for x in cases:
+        nmax = max(8, 1 << max(x.size - 1, 1).bit_length())
+        row = np.zeros(nmax, np.uint8)
+        row[: x.size] = x
+        jl, js = f(jnp.asarray(row), jnp.int32(x.size))
+        want.append((np.asarray(jl), int(js)))
+        last, shift = tbwt.bwt_forward(torch.from_numpy(row)[None],
+                                       torch.tensor([x.size]))
+        np.testing.assert_array_equal(last[0].numpy(), want[-1][0])
+        assert int(shift[0]) == want[-1][1]
+    nmax = max(w[0].size for w in want)
+    batch = np.zeros((len(cases), nmax), np.uint8)
+    for i, x in enumerate(cases):
+        batch[i, : x.size] = x
+    last, shift = tbwt.bwt_forward(torch.from_numpy(batch),
+                                   torch.tensor([x.size for x in cases]))
+    for i, (jl, js) in enumerate(want):
+        np.testing.assert_array_equal(last[i, : jl.size].numpy(), jl)
+        assert not last[i, jl.size:].any() and int(shift[i]) == js
+
+
 def test_mtf_forward_and_rle0_match_jax(rows):
     batch, ns = rows
     codes = tmtf.mtf_forward(torch.from_numpy(batch), torch.from_numpy(ns), 128)
