@@ -16,7 +16,7 @@ card's device ms, busy ms and idle share over one more pass under the
 profiler (kept out of the timed five: the profiler lengthens wall time),
 and a calibration of the pipeline's own primitives on the card: a null
 launch and synchronize, the pinned host->device upload (pipeline._put) and
-the device->host copy (pipeline._HostCopy).  The corpus is found through
+the device->host copy (programs.HostCopy).  The corpus is found through
 BMH_CORPUS_DIR; without it `run` returns a "corpus not found" record.
 On device="cpu" (the tests') the card's fields are None: not measured.
 """
@@ -48,7 +48,8 @@ def calibrate_device(device, size_mb: float = 4.0, reps: int = 8) -> dict:
     """The pipeline's primitives on the card: a null launch plus
     synchronize (median ms), and the host->device upload and device->host
     copy of size_mb MiB (median of 3, less the null launch)."""
-    from .models.pipeline import _HostCopy, _put
+    from .models.pipeline import _put
+    from .models.programs import HostCopy
 
     dev = torch.device(device)
     n = int(size_mb * (1 << 20))
@@ -72,7 +73,7 @@ def calibrate_device(device, size_mb: float = 4.0, reps: int = 8) -> dict:
     pulls = []
     for buf in bufs:
         t0 = time.perf_counter()
-        _HostCopy(buf).wait()
+        HostCopy(buf).wait()
         pulls.append(time.perf_counter() - t0)
     mb = n / 1e6
     return {"null_launch_ms": null_s * 1e3,

@@ -19,15 +19,21 @@ The flat and periodic routes bring each block's decoded total back in the
 same single copy, and a total that differs from the block length raises.
 
 Blocks are grouped by power-of-two size bucket and batched up to
-`max_dispatch` blocks.  PyTorch runs eagerly, so no program cache exists
-and every knob is read at call time.
+`max_dispatch` blocks; a batch is padded to a power of two of rows, and a
+decode batch's chunk count to bmh_tpu's bucket, so that programs are
+reused.  Both compress programs (`compress_program`) and the flat route
+(`decode_flat_program`) run through models/programs.py, bmh_tpu's cache of
+compiled programs: on a card each is a captured CUDA graph per shape and
+knob set, with no host decision inside (their loops are
+ops/control.while_loop).  The periodic and single-symbol routes run as
+they are.
 
 Dispatch, bmh_tpu's: each batch is split into a *dispatch* (stage, upload,
 launch, start the one device->host copy) and a *drain* (wait for the copy,
 unpack), and up to `inflight` (BMH_INFLIGHT) batches wait between the two
 (`_run_window`).  A decompress dispatch never waits for the card, so the
 host stages batch k+1 while the card decodes batch k; a compress dispatch
-waits inside (a tie count a round), so its window holds only the copies.
+waits inside (a loop flag a round), so its window holds only the copies.
 Every dispatch runs on the calling thread with its device current.  A
 compress dispatch of b_pad blocks splits its rows over `_ndev_for(b_pad)`
 of the backend's devices, as bmh_tpu's shard_map splits the block axis;
@@ -47,10 +53,18 @@ from ..ops import bwt as ops_bwt
 from ..ops import huffman as ops_huf
 from ..ops import mtf as ops_mtf
 from ..ops import rle as ops_rle
+from ..ops.control import doublings, scalar, while_loop
 from ..utils import config as config_mod
 from ..utils.tracing import annotate
+from . import programs
 
 A = ops_rle.RLE_ALPHABET
+# a decode batch's chunk count is padded to a power of two times the
+# chunks that hold this many payload bits: bmh_tpu's CHUNK_ALIGN (1024, the
+# Pallas phase-B tile times its 8 sublanes) of its 512-bit chunks.  At the
+# default 512-bit chunks that is bmh_tpu's bucket; longer chunks pad to as
+# many payload bits, not to 1024 chunks
+CHUNK_ALIGN_BITS = 1024 * 512
 # minimum compact-set capacity of the sparse refinement
 _SPARSE_MIN = 4096
 # Prefix doubling runs until every block of a batch converges, so one block
@@ -150,45 +164,46 @@ def _sparse_cap(b_pad: int, nmax: int) -> int:
 
 def sparse_ranks(data: torch.Tensor, n: torch.Tensor, b_pad: int) -> torch.Tensor:
     """Final BWT ranks by bmh_tpu's adaptive handoff (_compress_core with
-    hard=False).
+    hard=False), with no decision on the host.
 
     Doubling rounds stop at h = 2^(full_rounds + 1).  While the batch's tied
-    positions exceed the compact capacity, whole-batch rounds go on (only
-    rows with ties are sorted: for the others a round changes nothing); the
-    tied set is then refined sparsely from the gap reached.  One sync per
-    round reads the per-row tie counts."""
+    positions exceed the compact capacity, whole-batch rounds go on (every
+    row: for a row without ties a round changes nothing); the tie total
+    stays on the card, as bmh_tpu's cont_cond keeps it.  The tied set is
+    then refined sparsely from the gap reached.  Where the ties still
+    exceed the capacity (h has passed Nmax: exactly periodic blocks) the
+    ranks are already final, bmh_tpu's resume branch leaves them as they
+    are, and one select on the card keeps them."""
     cfg = config_mod.DEFAULT
     nmax = data.shape[1]
     m_cap = _sparse_cap(b_pad, nmax)
     h_s = 1 << (cfg.full_rounds + 1)
     rank, tied, _, _ = ops_bwt.bwt_rounds(data, n, h_s)
-    cnt = tied.sum(dim=1).tolist()
-    while sum(cnt) > m_cap and h_s < nmax:
-        rows = torch.tensor([r for r, c in enumerate(cnt) if c], device=data.device)
-        sub, sub_tied, h_s, _ = ops_bwt.round_step(rank[rows], tied[rows], h_s, n[rows])
-        rank[rows] = sub
-        tied[rows] = sub_tied
-        cnt = tied.sum(dim=1).tolist()
-    total = sum(cnt)
-    if total > m_cap:
-        # only h_s >= nmax with ties left (exactly periodic blocks): doubling
-        # has covered every block, the ranks are final and this exits at once
-        return ops_bwt.bwt_rounds_resume(rank, torch.zeros_like(tied), h_s,
-                                         torch.zeros_like(n, dtype=torch.bool),
-                                         n)[0]
-    if total == 0:
-        return rank
-    return _sparse_refine_compact(rank, tied, n, m_cap, h_s)
+
+    def cont(rank, tied, h, total):
+        return (total > m_cap) & (h < nmax)
+
+    def handoff(rank, tied, h, total):
+        rank, tied, h, _ = ops_bwt.round_step(rank, tied, h, n)
+        return rank, tied, h, tied.sum()
+
+    rank, tied, h_s, total = while_loop(
+        cont, handoff, (rank, tied, scalar(h_s, data.device), tied.sum()),
+        doublings(h_s, nmax))
+    refined = _sparse_refine_compact(rank, tied, n, m_cap, h_s)
+    return torch.where(total <= m_cap, refined, rank)
 
 
 def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
-                           ns: torch.Tensor, m_cap: int, h0: int) -> torch.Tensor:
+                           ns: torch.Tensor, m_cap: int, h0) -> torch.Tensor:
     """Compact the tied positions of the batch (in index order, pads
-    blk == B) into an m_cap set and refine them from gap h0."""
+    blk == B) into an m_cap set and refine them from gap h0 (an int or a
+    0-dim tensor).  Ties past m_cap fall into a dropped slot (the caller
+    discards such a result)."""
     b, nmax = rank.shape
     dev = rank.device
     flat = tied.reshape(-1)
-    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, m_cap)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, m_cap).clamp(max=m_cap)
     idx = torch.full((m_cap + 1,), b * nmax, dtype=torch.int64, device=dev)
     idx = idx.scatter_(0, dest, torch.arange(b * nmax, device=dev))[:m_cap]
     blk = idx // nmax
@@ -197,7 +212,8 @@ def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
     # hm0 = h0 mod nb by bmh_tpu's binary conditional subtraction (the
     # quotient is at most h0 <= nmax); products past nmax are masked to
     # int32-max as there, so the ladder gives bmh_tpu's values exactly
-    hm = torch.full((m_cap,), h0, dtype=torch.int64, device=dev)
+    h0 = scalar(h0, dev)
+    hm = h0.expand(m_cap).clone()
     q = 1 << (nmax.bit_length() - 1)
     while q >= 1:
         prod = torch.where(nb <= nmax // q, nb * q, 2**31 - 1)
@@ -209,66 +225,72 @@ def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
                                  tier2_div=cfg.tier2_div)
 
 
-class _HostCopy:
-    """The device->host copy that ends a dispatch: on a card, into pinned
-    memory with an event recorded after it (started, not waited for); on
-    the CPU, the tensor itself."""
-
-    def __init__(self, t: torch.Tensor):
-        self.event = None
-        if t.device.type != "cuda":
-            self.host = t
-            return
-        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self.host.copy_(t, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
-
-    def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+def _meta_cols(nmax: int, stride: int) -> int:
+    """Columns of a compress program's meta row: bits, nw, shift, m,
+    aperiodic, present (257), lens (257), cps (max(nmax // stride, 1))."""
+    return 5 + 2 * A + max(nmax // stride, 1)
 
 
-def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
-                       b_pad: int, device):
-    """Dispatch the blocks `idxs` on `device`: stage and upload them, run
-    the compress program (hard: the full-rounds one; b_pad sizes the
-    sparse one's compact set) and start the ONE copy of [per-block meta |
-    compacted payload words] to the host.  Returns (the copy, the meta's
-    column count)."""
-    b = len(idxs)
-    batch = np.zeros((b, nmax), dtype=np.uint8)
-    ns = np.zeros(b, dtype=np.int64)
-    for row, i in enumerate(idxs):
-        batch[row, : arrs[i].size] = arrs[i]
-        ns[row] = arrs[i].size
-    data = _put(batch, device)
-    n = _put(ns, device)
+def _flatten_out(words, bits, lens, freqs, m, shift, cps, aper) -> torch.Tensor:
+    """A compress program's one output at a static size, as bmh_tpu's
+    _flatten_payloads and _merge_out: (B * meta_cols + B * W,) int32, the
+    meta rows, then every block's word-aligned payload back to back (the
+    rest zero).  Payload words are uint32 bit patterns; meta values fit
+    31 bits."""
+    b, w = words.shape
+    nw = (bits + 31) // 32
+    woffs = torch.cumsum(nw, 0) - nw
+    slot = torch.arange(w, device=words.device)[None, :]
+    dest = torch.where(slot < nw[:, None], woffs[:, None] + slot, b * w)
+    flat = torch.zeros(b * w + 1, dtype=torch.int64, device=words.device)
+    flat = flat.scatter_(0, dest.reshape(-1), words.reshape(-1))[: b * w]
+    meta = torch.cat([torch.stack([bits, nw, shift, m, aper.to(torch.int64)], 1),
+                      (freqs > 0).to(torch.int64), lens, cps], dim=1)
+    out = torch.cat([meta.reshape(-1), flat])
+    return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
+def compress_program(data: torch.Tensor, n: torch.Tensor, stride: int,
+                     hard: bool, b_pad: int) -> torch.Tensor:
+    """The whole compress of a (B, Nmax) batch as one program: the
+    full-rounds program (hard) or the sparse/adaptive one, whose compact
+    set b_pad (the batch rounded up to a power of two) sizes, then
+    _flatten_out.  On a card B = b_pad, the rows past the batch carrying
+    n = 1 as bmh_tpu's dummy rows do."""
     if hard:
         out = compress_full_fn(data, n, stride)
     else:
         out = compress_sparse_fn(data, n, stride, b_pad)
-    words, bits, lens, freqs, m, shift, cps, aper = out
+    return _flatten_out(*out)
 
-    # ragged concat of each block's word-aligned payload: meta row = bits,
-    # nw, shift, m, aperiodic, present (257), lens (257), cps (k)
-    nw = (bits + 31) // 32
-    slot = torch.arange(words.shape[1], device=data.device)[None, :]
-    flat = words[slot < nw[:, None]]
-    meta = torch.cat([torch.stack([bits, nw, shift, m, aper.to(torch.int64)], 1),
-                      (freqs > 0).to(torch.int64), lens, cps], dim=1)
-    return _HostCopy(torch.cat([meta.reshape(-1), flat])), meta.shape[1]
+
+def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
+                       b_pad: int, device):
+    """Dispatch the blocks `idxs` on `device`: stage them (on a card as a
+    b_pad-row batch, so that shapes repeat; the CPU keeps no graph to
+    reuse and takes the rows as they are), run the compress program (hard:
+    the full-rounds one) through the program cache and start the ONE copy
+    of [per-block meta | compacted payload words] to the host.  Returns
+    (the copy, (rows, meta columns))."""
+    rows = b_pad if device.type == "cuda" else len(idxs)
+    batch = np.zeros((rows, nmax), dtype=np.uint8)
+    ns = np.ones(rows, dtype=np.int64)  # dummy rows compress n = 1
+    for row, i in enumerate(idxs):
+        batch[row, : arrs[i].size] = arrs[i]
+        ns[row] = arrs[i].size
+    k = programs.key("compress_full" if hard else "compress_sparse",
+                     b_pad=rows, nmax=nmax, stride=stride)
+    fn = functools.partial(compress_program, stride=stride, hard=hard, b_pad=b_pad)
+    return programs.run(device, k, fn, (batch, ns)), (rows, _meta_cols(nmax, stride))
 
 
 def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
     """Wait for a compress dispatch's copy; returns its per-block result
     dicts."""
-    copy, cols = part
+    copy, (rows, cols) = part
     host = copy.wait()
-    b = len(idxs)
-    meta_np = host[: b * cols].reshape(b, cols)
-    flat_np = host[b * cols:].astype(">u4")
+    meta_np = host[: rows * cols].reshape(rows, cols).astype(np.int64)
+    flat_np = host[rows * cols:].view(np.uint32).astype(">u4")
     woffs = np.cumsum(meta_np[:, 1]) - meta_np[:, 1]
     results = []
     for row, i in enumerate(idxs):
@@ -296,29 +318,43 @@ def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
 # Decompress
 # ---------------------------------------------------------------------------
 
-def _stage_flat_np(blocks: list[dict], idxs: list[int], chunk_bits: int):
-    """Host staging of a batch on one flat chunk axis: every block's payload
-    padded to whole chunks, back to back, plus per-chunk block ids and
-    per-block tables and scalars.  Returns numpy arrays and maxl."""
+def _stage_flat_np(blocks: list[dict], idxs: list[int], chunk_bits: int,
+                   pad: bool = True):
+    """Host staging of a batch on one flat chunk axis, as bmh_tpu's: every
+    block's payload padded to whole chunks, back to back, plus per-chunk
+    block ids and per-block tables and scalars.  With `pad` the shapes are
+    bmh_tpu's buckets, so that programs are reused: b_pad = the batch
+    rounded up to a power of two (rows past the batch: ns = ms = 1, no
+    chunks), the chunk count rounded up to a power of two times the chunks
+    of CHUNK_ALIGN_BITS; each pad chunk is a block of its own in a dummy
+    row b_pad (no code lengths, ms = 0), so it decodes to nothing.  A
+    dispatch pads on a card only: the CPU keeps no graph to reuse, and its
+    plain versions pay for every pad row and chunk (b_pad is then the
+    batch).  Returns numpy arrays (lens_all, ms and ns with b_pad + 1 rows,
+    shifts with b_pad) and maxl."""
     wbytes = chunk_bits // 8
+    b_pad = _next_pow2(len(idxs)) if pad else len(idxs)
     spans = []  # (start_chunk, n_chunks) per block
-    nc = 0
+    nc_true = 0
     maxl = 0
     for i in idxs:
         nc_b = max(1, -(-len(blocks[i]["payload"]) // wbytes))
-        spans.append((nc, nc_b))
-        nc += nc_b
+        spans.append((nc_true, nc_b))
+        nc_true += nc_b
         maxl = max(maxl, int(np.asarray(blocks[i]["lens"]).max()))
     maxl = min(max(8, -(-maxl // 8) * 8), 31)
-    b = len(idxs)
+    align = max(CHUNK_ALIGN_BITS // chunk_bits, 1)
+    nc = _next_pow2(-(-nc_true // align)) * align if pad else nc_true
     words = np.zeros(nc * wbytes // 4, dtype=np.uint32)
-    lens_all = np.zeros((b, A), dtype=np.int64)
-    seg_id = np.zeros(nc, dtype=np.int64)
+    lens_all = np.zeros((b_pad + 1, A), dtype=np.int64)
+    seg_id = np.full(nc, b_pad, dtype=np.int64)
     seg_start = np.zeros(nc, dtype=bool)
-    seg_start_idx = np.zeros(nc, dtype=np.int64)
-    ms = np.zeros(b, dtype=np.int64)
-    ns = np.zeros(b, dtype=np.int64)
-    shifts = np.zeros(b, dtype=np.int64)
+    seg_start[nc_true:] = True
+    seg_start_idx = np.arange(nc, dtype=np.int64)
+    ms = np.ones(b_pad + 1, dtype=np.int64)
+    ms[b_pad] = 0
+    ns = np.ones(b_pad + 1, dtype=np.int64)
+    shifts = np.zeros(b_pad, dtype=np.int64)
     for row, (i, (c0, nc_b)) in enumerate(zip(idxs, spans)):
         blk = blocks[i]
         buf = blk["payload"] + b"\x00" * (nc_b * wbytes - len(blk["payload"]))
@@ -342,27 +378,52 @@ def _tables(words, lens_all, seg_id, chunk_bits: int):
 
 
 def _compact_rows(data: torch.Tensor, totals: torch.Tensor,
-                  ns: np.ndarray) -> torch.Tensor:
-    """The decoded rows compacted back to back (sum(ns) bytes), then each
-    row's decoded total as 8 little-endian bytes, so the caller's single
-    copy carries the integrity trailer.  The lengths are host data: the
-    compaction's size is known without waiting for the card."""
-    rows = [data[row, :n] for row, n in enumerate(ns.tolist())]
-    return torch.cat(rows + [totals.contiguous().view(torch.uint8)])
+                  ncopy: torch.Tensor) -> torch.Tensor:
+    """bmh_tpu's _compact_rows_diag at a static size: the first ncopy[r]
+    bytes of each row r back to back, then each row's decoded total as 8
+    little-endian bytes, in a (B * Nmax + 8 * B,) uint8 buffer.  The host
+    knows sum(ncopy) and copies only that and the real rows' trailer."""
+    b, nmax = data.shape
+    dev = data.device
+    cap = b * nmax + 8 * b
+    offs = torch.cumsum(ncopy, 0) - ncopy
+    i = torch.arange(nmax, device=dev)[None, :]
+    dest = torch.where(i < ncopy[:, None], offs[:, None] + i, cap)
+    dest_t = (ncopy.sum() + 8 * torch.arange(b, device=dev)[:, None]
+              + torch.arange(8, device=dev)[None, :])
+    out = torch.zeros(cap + 1, dtype=torch.uint8, device=dev)
+    out = out.scatter_(0, torch.cat([dest.reshape(-1), dest_t.reshape(-1)]),
+                       torch.cat([data.reshape(-1),
+                                  totals.contiguous().view(torch.uint8)]))
+    return out[:cap]
 
 
 def decode_flat(words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns,
                 shifts, cps, nmax: int, chunk_bits: int, maxl: int,
                 stride: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The flat route on device tensors: fused gap decode + inverse MTF +
-    cursor iBWT.  Returns ((B, nmax) uint8 rows, (B,) int64 decoded
-    totals)."""
+    cursor iBWT.  Takes _stage_flat_np's arrays (cps (B, k) with one row a
+    shift).  Returns ((B, nmax) uint8 rows, (B,) int64 decoded totals), B
+    = the rows of `shifts` (the dummy row of pad chunks dropped)."""
     wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
     codes, totals = ops_huf.gap_decode_rle0_flat(
         wext, count_t, seg_start, seg_start_idx, seg_id, sym_b, ms, ns,
         nmax, chunk_bits, maxl)
-    last = ops_mtf.mtf_inverse(codes, ns, config_mod.DEFAULT.imtf_chunk)
-    return ops_bwt.bwt_inverse_cursors(last, shifts, cps, ns, stride), totals
+    b = shifts.shape[0]
+    last = ops_mtf.mtf_inverse(codes[:b], ns[:b], config_mod.DEFAULT.imtf_chunk)
+    return (ops_bwt.bwt_inverse_cursors(last, shifts, cps, ns[:b], stride),
+            totals[:b])
+
+
+def decode_flat_program(words, lens_all, seg_start, seg_start_idx, seg_id, ms,
+                        ns, shifts, cps, ncopy, nmax: int, chunk_bits: int,
+                        maxl: int, stride: int) -> torch.Tensor:
+    """The flat route as one program: decode_flat, then the rows compacted
+    with their totals (_compact_rows; ncopy is ns with 0 past the batch)."""
+    data, totals = decode_flat(words, lens_all, seg_start, seg_start_idx,
+                               seg_id, ms, ns, shifts, cps, nmax, chunk_bits,
+                               maxl, stride)
+    return _compact_rows(data, totals, ncopy)
 
 
 def decompress_stage2_fn(syms: torch.Tensor, m: torch.Tensor,
@@ -383,35 +444,46 @@ def decode_flat_periodic(words, lens_all, seg_start, seg_start_idx, seg_id,
     wext, count_t, sym_b = _tables(words, lens_all, seg_id, chunk_bits)
     syms = ops_huf.gap_decode_flat(wext, count_t, seg_start, seg_start_idx,
                                    seg_id, sym_b, ms, nmax, chunk_bits, maxl)
+    b = shifts.shape[0]
+    syms, ms, ns = syms[:b], ms[:b], ns[:b]
     totals = ops_rle.rle0_decoded_len(syms, ms)
     return decompress_stage2_fn(syms, ms, shifts, ns), totals
 
 
 def _decompress_dispatch(blocks, idxs, nmax: int, stride: int | None, device):
     """Dispatch one batch on `device` by the flat route, or the periodic
-    route when stride is None: stage it on the host, upload, decode,
-    compact the rows and start the ONE copy of [bytes | decoded totals] to
-    the host.  Nothing here waits for the card.  Returns (the copy, the
-    block lengths)."""
+    route when stride is None: stage it on the host, decode it, compact the
+    rows with their totals and start the ONE copy of [bytes | decoded
+    totals] to the host.  The flat route runs as a program of the cache
+    (a captured graph on a card); the periodic route runs as it is.
+    Nothing here waits for the card.  Returns (the copy, the block
+    lengths)."""
     chunk_bits = config_mod.DEFAULT.decode_chunk_bits
-    (words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts,
-     maxl) = _stage_flat_np(blocks, idxs, chunk_bits)
-    args = tuple(_put(x, device) for x in (words.view(np.int32), lens_all,
-                                           seg_start, seg_start_idx, seg_id,
-                                           ms, ns, shifts))
+    staged = _stage_flat_np(blocks, idxs, chunk_bits, device.type == "cuda")
+    words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts, maxl = staged
+    b, b_pad = len(idxs), shifts.size
+    ncopy = np.zeros(b_pad, dtype=np.int64)
+    ncopy[:b] = ns[:b]
+    n_out = int(ncopy.sum()) + 8 * b
+    arrays = (words.view(np.int32), lens_all, seg_start, seg_start_idx, seg_id,
+              ms, ns, shifts)
     if stride is None:
-        data, totals = decode_flat_periodic(*args, nmax, chunk_bits, maxl)
-    else:
-        kcp = max(max(nmax // stride, 1) - 1, 1)
-        cps = np.zeros((len(idxs), kcp), dtype=np.int64)
-        for row, i in enumerate(idxs):
-            bc = blocks[i].get("cps")
-            if bc is not None and len(bc) > 0:
-                cc = np.asarray(bc, dtype=np.int64)[:kcp]
-                cps[row, : cc.size] = cc
-        data, totals = decode_flat(*args, _put(cps, device), nmax, chunk_bits,
-                                   maxl, stride)
-    return _HostCopy(_compact_rows(data, totals, ns)), ns
+        data, totals = decode_flat_periodic(*(_put(x, device) for x in arrays),
+                                            nmax, chunk_bits, maxl)
+        out = _compact_rows(data, totals, _put(ncopy, device))
+        return programs.HostCopy(out[:n_out]), ns[:b]
+    kcp = max(max(nmax // stride, 1) - 1, 1)
+    cps = np.zeros((b_pad, kcp), dtype=np.int64)
+    for row, i in enumerate(idxs):
+        bc = blocks[i].get("cps")
+        if bc is not None and len(bc) > 0:
+            cc = np.asarray(bc, dtype=np.int64)[:kcp]
+            cps[row, : cc.size] = cc
+    k = programs.key("decode_flat", b_pad=b_pad, nmax=nmax, nc=seg_id.size,
+                     chunk_bits=chunk_bits, maxl=maxl, stride=stride)
+    fn = functools.partial(decode_flat_program, nmax=nmax, chunk_bits=chunk_bits,
+                           maxl=maxl, stride=stride)
+    return programs.run(device, k, fn, (*arrays, cps, ncopy), n_out), ns[:b]
 
 
 def _decompress_drain(part, idxs, results) -> None:

@@ -17,6 +17,11 @@ A caller may launch from several threads, so the counts and the first
 build of a library each take a lock, and every launch goes through
 `on_device`, which makes the tensor's card current (a new thread starts on
 card 0) and hands over that card's current stream.
+
+A launch made while models/programs.py captures a CUDA graph runs no
+kernel then: `recording()` diverts this thread's counts into the graph's
+own tally, and every replay of the graph adds that tally to LAUNCHES
+(`add_launches`).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ BUILD_LOGS: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
+_local = threading.local()
 
 
 def reset_launches() -> None:
@@ -60,8 +66,31 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def add_launches(tally: dict) -> None:
+    """A replayed graph's launches, as its capture recorded them."""
+    with _count_lock:
+        for name, k in tally.items():
+            LAUNCHES[name] += k
+
+
+@contextmanager
+def recording():
+    """Counts this thread's launches into the yielded dict instead of
+    LAUNCHES (a capture: the kernels run only when the graph replays)."""
+    tally: dict = {}
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = None
 
 
 def _nvcc() -> str:

@@ -13,8 +13,11 @@ Every BWT sort goes through `_stable_sort3`: kernel K5 (ops/sort_kernel.py)
 with BMH_PALLAS_SORT on and the row length inside its envelope, one packed
 int64 torch.sort otherwise.  The sorted order of rotations is unique, so
 both programs and both sorts give the same bytes.  bmh_tpu's while_loops
-are host loops that read one device flag per round; rows that finished stay
-frozen, as a vmapped while_loop leaves them.
+are `control.while_loop`s: eagerly they read one device flag a round, and
+in a captured program (models/programs.py) the body is a graph that the
+replay repeats while that flag holds.  Inside a loop nothing depends on the
+data's shape: every row runs every round, and a row that finished keeps
+its carry, as a vmapped while_loop leaves it.
 
 The inverses: the checkpointed LF-cursor walk (kernel K4, over the
 self-composed table with lf2 on) for aperiodic blocks, the
@@ -32,6 +35,7 @@ import torch
 
 from ..utils import config as config_mod
 from . import ibwt_kernel, sort_kernel
+from .control import doublings, scalar, while_loop
 
 INT32_BIG = 2**31 - 1
 _LF_SHIFT = 23
@@ -86,11 +90,12 @@ def _init_rank(data: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(pos < nn, v - 2**31, INT32_BIG)
 
 
-def _round_body(rank: torch.Tensor, h: int, n: torch.Tensor):
+def _round_body(rank: torch.Tensor, h, n: torch.Tensor):
     """One prefix-doubling round with head-index ranks: rank[i] becomes the
     sorted position of the first member of i's tie group under the key
-    (rank[i], rank[(i + h) mod n]).  Returns (new rank, tied (B, Nmax) bool
-    — i is real and in a group of size > 1, done (B,) bool)."""
+    (rank[i], rank[(i + h) mod n]); h is an int or a 0-dim tensor.  Returns
+    (new rank, tied (B, Nmax) bool — i is real and in a group of size > 1,
+    done (B,) bool)."""
     b, nmax = rank.shape
     dev = rank.device
     pos = torch.arange(nmax, device=dev).expand(b, nmax)
@@ -115,28 +120,32 @@ def _round_body(rank: torch.Tensor, h: int, n: torch.Tensor):
     return new_rank, tied, n_distinct >= n - 1
 
 
-def bwt_rounds_resume(rank: torch.Tensor, tied: torch.Tensor, h: int,
+def bwt_rounds_resume(rank: torch.Tensor, tied: torch.Tensor, h,
                       done: torch.Tensor, n: torch.Tensor,
                       h_stop: int | None = None):
     """Continue doubling rounds from a (rank, tied, h, done) state until
-    every row is done or h >= min(h_stop, Nmax).
+    every row is done or h >= min(h_stop, Nmax); h is an int or a 0-dim
+    tensor.
 
-    Only the rows still running are sorted in a round; a row that is done
-    keeps its carry.  Returns (rank, tied, h (B,) int64 each row's next
-    gap, done (B,) bool)."""
+    Every row runs every round; a row that is done keeps its carry.
+    Returns (rank, tied, h (B,) int64 each row's next gap, done (B,)
+    bool)."""
     b, nmax = rank.shape
     h_cap = nmax if h_stop is None else min(h_stop, nmax)
-    rank, tied, done = rank.clone(), tied.clone(), done.clone()
-    h_row = torch.full((b,), h, dtype=torch.int64, device=rank.device)
-    active = (~done).nonzero().flatten()
-    while h < h_cap and active.numel():
-        sub, sub_tied, sub_done = _round_body(rank[active], h, n[active])
-        rank[active] = sub
-        tied[active] = sub_tied
-        done[active] = sub_done
-        h *= 2
-        h_row[active] = h
-        active = active[~sub_done]  # the round's one sync
+    trips = doublings(h, h_cap)
+    h = scalar(h, rank.device)
+
+    def cond(rank, tied, h, done, h_row):
+        return (h < h_cap) & ~done.all()
+
+    def body(rank, tied, h, done, h_row):
+        sub, sub_tied, sub_done = _round_body(rank, h, n)
+        keep = done[:, None]
+        return (torch.where(keep, rank, sub), torch.where(keep, tied, sub_tied),
+                2 * h, done | sub_done, torch.where(done, h_row, 2 * h))
+
+    rank, tied, _, done, h_row = while_loop(
+        cond, body, (rank, tied, h, done, h.expand(b).clone()), trips)
     return rank, tied, h_row, done
 
 
@@ -150,7 +159,7 @@ def bwt_rounds(data: torch.Tensor, n: torch.Tensor, h_stop: int | None = None):
     return bwt_rounds_resume(rank, tied, 4, n <= 1, n, h_stop)
 
 
-def round_step(rank: torch.Tensor, tied: torch.Tensor, h: int,
+def round_step(rank: torch.Tensor, tied: torch.Tensor, h,
                n: torch.Tensor):
     """Exactly ONE doubling round from (rank, tied) at gap h, for every row
     given (the adaptive handoff's batch-level step).  Returns
@@ -181,19 +190,21 @@ def _sort_compact(k1, k2, midx):
 
 
 def sparse_refine(rank: torch.Tensor, blk: torch.Tensor, pos: torch.Tensor,
-                  hm0: torch.Tensor, ns: torch.Tensor, h0: int,
+                  hm0: torch.Tensor, ns: torch.Tensor, h0,
                   tier1_rounds: int = 2, tier2_div: int = 4) -> torch.Tensor:
     """Finish prefix doubling by refining only the tied positions.
 
     rank: (B, Nmax) head-index ranks; blk/pos: (M,) compact entries, pads
     with blk == B; hm0: (M,) h0 mod ns[blk]; ns: (B,); h0: the gap the full
-    rounds handed off at.  A tie group at gap 2h holds only positions tied
-    at gap h, so each round sorts the M-entry compact set instead of
-    B * Nmax.  Head-index ranks make the refinement in place: a group's
-    head rank IS its first sorted index, so refined ranks are head +
-    subgroup offset.  Tier 1 runs `tier1_rounds` rounds at capacity M, then
-    the survivors move to a tier-2 set of M / tier2_div entries; if they
-    overflow it, full-capacity rounds run on.  Returns the refined rank.
+    rounds handed off at (an int or a 0-dim tensor).  A tie group at gap 2h
+    holds only positions tied at gap h, so each round sorts the M-entry
+    compact set instead of B * Nmax.  Head-index ranks make the refinement
+    in place: a group's head rank IS its first sorted index, so refined
+    ranks are head + subgroup offset.  Tier 1 runs `tier1_rounds` rounds at
+    capacity M, then the survivors move to a tier-2 set of M / tier2_div
+    entries; if they overflow it, full-capacity rounds run on.  bmh_tpu's
+    lax.cond between the two tails is two loops here, each of which runs
+    only under its branch's predicate.  Returns the refined rank.
     """
     b, nmax = rank.shape
     dev = rank.device
@@ -212,7 +223,7 @@ def sparse_refine(rank: torch.Tensor, blk: torch.Tensor, pos: torch.Tensor,
     comb = comb[: b * nmax]
     rc = rank_flat[torch.where(valid, flat_pos, 0)]  # compact working ranks
 
-    def body(rc, hm):
+    def body(rc, tied, hm, h, done):
         p2 = pos + hm
         p2 = torch.where(p2 >= nb, p2 - nb, p2)
         g2 = comb[(blk_c * nmax + p2).clamp(0, b * nmax - 1)]
@@ -224,41 +235,45 @@ def sparse_refine(rank: torch.Tensor, blk: torch.Tensor, pos: torch.Tensor,
         rc = torch.empty_like(rc).scatter_(0, sidx, new_rank_s)
         tied = torch.empty_like(tied_s).scatter_(0, sidx, tied_s)
         hm = 2 * hm
-        return rc, tied, torch.where(hm >= nb, hm - nb, hm), done
+        return rc, tied, torch.where(hm >= nb, hm - nb, hm), 2 * h, done
 
-    h, hm, done = h0, hm0, False
-    tied = torch.ones(m, dtype=torch.bool, device=dev)
+    def cond(rc, tied, hm, h, done):
+        return (h < nmax) & ~done
+
+    trips = doublings(h0, nmax)
+    h0 = scalar(h0, dev)
+    state = (rc, torch.ones(m, dtype=torch.bool, device=dev), hm0, h0,
+             torch.zeros((), dtype=torch.bool, device=dev))
     m2 = min(max(m // tier2_div, 4096), m)
-    if m2 < m:
+    if m2 >= m:
+        rc = while_loop(cond, body, state, trips)[0]
+    else:
         # TIER 1: a few rounds at full capacity (the tied set roughly
         # halves per round on text) — bmh_tpu's cond1 has no h < Nmax test
-        while h < h0 * (1 << tier1_rounds) and not done:
-            rc, tied, hm, done_t = body(rc, hm)
-            h *= 2
-            done = bool(done_t)  # the round's one sync
-        if int(tied.sum()) <= m2:
-            rc = _tier2(rc, tied, hm, h, done, comb, blk, pos, ns, b, nmax, m2)
-            h = nmax  # tier 2 ran to its end
-    while h < nmax and not done:
-        rc, tied, hm, done_t = body(rc, hm)
-        h *= 2
-        done = bool(done_t)
+        h_t1 = h0 * (1 << tier1_rounds)
+        state = while_loop(lambda rc, tied, hm, h, done: (h < h_t1) & ~done,
+                           body, state, tier1_rounds)
+        to_tier2 = state[1].sum() <= m2
+        # the survivors overflow the tier-2 set: full-capacity rounds
+        state = while_loop(lambda *st: ~to_tier2 & cond(*st), body, state, trips)
+        rc = _tier2(*state, to_tier2, comb, blk, pos, ns, b, nmax, m2, trips)
     out = torch.cat([rank_flat.clone(), rank_flat.new_zeros(1)])
     out[torch.where(valid, flat_pos, b * nmax)] = rc
     return out[: b * nmax].reshape(b, nmax)
 
 
-def _tier2(rc, tied, hm, h: int, done: bool, comb, blk, pos, ns, b: int,
-           nmax: int, m2: int) -> torch.Tensor:
+def _tier2(rc, tied, hm, h, done, go, comb, blk, pos, ns, b: int, nmax: int,
+           m2: int, trips: int) -> torch.Tensor:
     """sparse_refine's second tier: the <= m2 still-tied entries, in
-    compact-index order, refined in an m2-entry set until done or h >= Nmax.
-    Writes through oidx into the full compact ranks `rc` (pads write to the
-    dropped slot m)."""
+    compact-index order, refined in an m2-entry set until done or h >= Nmax
+    (at most `trips` rounds), while `go` (the tier's predicate) holds.  Writes through oidx into the
+    full compact ranks `rc` (pads write to the dropped slot m)."""
     dev = rc.device
     m = rc.shape[0]
     midx2 = torch.arange(m2, device=dev)
-    # stable compaction: tied entries first, in index order
-    dest = torch.where(tied, torch.cumsum(tied, 0) - 1, m2)
+    # stable compaction: tied entries first, in index order (entries past
+    # m2, where `go` is false, all land in the dropped slot)
+    dest = torch.where(tied, torch.cumsum(tied, 0) - 1, m2).clamp(max=m2)
     oidx = torch.full((m2 + 1,), m, dtype=torch.int64, device=dev)
     oidx = oidx.scatter_(0, dest, torch.arange(m, device=dev))[:m2]
     inval = oidx >= m
@@ -269,7 +284,8 @@ def _tier2(rc, tied, hm, h: int, done: bool, comb, blk, pos, ns, b: int,
     nb2 = ns[blk2.clamp(0, b - 1)]
     pad_key2 = b * nmax + midx2
     rc = torch.cat([rc, rc.new_zeros(1)])  # slot m: the pads' dropped writes
-    while h < nmax and not done:
+
+    def body(rc, hmc, h, done):
         p2 = pos2 + hmc
         p2 = torch.where(p2 >= nb2, p2 - nb2, p2)
         g2 = comb[(blk2.clamp(0, b - 1) * nmax + p2).clamp(0, b * nmax - 1)]
@@ -278,12 +294,13 @@ def _tier2(rc, tied, hm, h: int, done: bool, comb, blk, pos, ns, b: int,
         k1 = torch.where(inval, pad_key2, blk2 * nmax + rself)
         k2 = torch.where(inval, 0, r2)
         sk1, sk2, sidx = _sort_compact(k1, k2, midx2)
-        new_rank_s, _, done_t = _regroup(sk1, sk2, sidx, blk2, nmax)
+        new_rank_s, _, done = _regroup(sk1, sk2, sidx, blk2, nmax)
         rc = rc.scatter(0, oidx[sidx], new_rank_s)
         hmc = 2 * hmc
-        hmc = torch.where(hmc >= nb2, hmc - nb2, hmc)
-        h *= 2
-        done = bool(done_t)  # the round's one sync
+        return rc, torch.where(hmc >= nb2, hmc - nb2, hmc), 2 * h, done
+
+    rc = while_loop(lambda rc, hmc, h, done: go & (h < nmax) & ~done, body,
+                    (rc, hmc, h, done), trips)[0]
     return rc[:m]
 
 

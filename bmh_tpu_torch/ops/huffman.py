@@ -3,7 +3,7 @@
 Port of bmh_tpu/ops/huffman.py, batched over blocks.
 
 * Encode: two-queue code lengths over each block's 257-bin histogram
-  (a step loop with the batch written out), canonical (length, symbol)
+  (a fixed 256-step loop with the batch written out), canonical (length, symbol)
   codes, and a bit packer in which every symbol adds its code to at most
   two 32-bit words (bits of distinct symbols never overlap, so the sum is
   their OR).  Words are uint32 values carried in int64.
@@ -35,7 +35,10 @@ def histogram(syms: torch.Tensor, m: torch.Tensor, bins: int) -> torch.Tensor:
     pos = torch.arange(nsym, device=syms.device)[None, :]
     idx = torch.where(pos < m[:, None], syms, bins)
     idx = idx + (bins + 1) * torch.arange(b, device=syms.device)[:, None]
-    cnt = torch.bincount(idx.reshape(-1), minlength=b * (bins + 1))
+    # a scatter-add, not bincount: bincount on a card reads the largest
+    # index back to size its output, which a captured program cannot do
+    cnt = torch.zeros(b * (bins + 1), dtype=torch.int64, device=syms.device)
+    cnt.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx).reshape(-1))
     return cnt.reshape(b, bins + 1)[:, :bins]
 
 
@@ -45,7 +48,11 @@ def code_lengths_device(freqs: torch.Tensor) -> torch.Tensor:
     The two-queue method exactly as bmh_tpu's code_lengths_device: leaves
     sorted by (freq, symbol) stably, pop-min prefers the leaf queue on
     ties, internal nodes are born in non-decreasing weight order.  The
-    length profile (not just its total) decides the container bytes."""
+    length profile (not just its total) decides the container bytes.
+
+    The merge loop runs a fixed A - 1 steps, as bmh_tpu's lax.scan does;
+    steps t >= s - 1 (s a row's present symbols) leave the row as it is,
+    and no step count is read back from the card."""
     b, a = freqs.shape
     dev = freqs.device
     f = freqs.to(torch.int64)
@@ -69,8 +76,7 @@ def code_lengths_device(freqs: torch.Tensor) -> torch.Tensor:
         return (torch.where(take_leaf, i + 1, i), torch.where(take_leaf, j, j + 1),
                 torch.where(take_leaf, lw, iw), torch.where(take_leaf, i, a + j))
 
-    # steps t >= s-1 are no-ops for a row; stop after the busiest row
-    for t in range(max(int(s.max()) - 1, 0)):
+    for t in range(a - 1):
         active = t < s - 1
         i1, j1, aw, an = pick(i, j)
         i2, j2, bw, bn = pick(i1, j1)

@@ -16,12 +16,22 @@ arms in order, then in reverse order (A B B A for two arms), `--turns`
 times for each arm.  Every turn must round-trip bit-exactly, and every
 arm must write the same container.
 
+Each turn also measures, for every row and direction, on calls after the
+timed ones: the first call's wall ms (a program cache captures there),
+peak device memory (max_memory_allocated), the host's waits for the card
+(`count_syncs`: event and stream synchronizes, and torch operations that
+read a card tensor, which sync debug mode "warn" reports), and one call
+under torch.profiler (device ms, busy ms, idle share); and, for checkouts
+that have models/programs.py, its counts over the turn.
+
 Printed, for each arm, row and direction: the median, quartiles and range
 of the per-turn rates, and the median over rounds of the rate over the
-first arm's rate in the same round; then the card's name and power limit.
+first arm's rate in the same round, with the medians of those measures;
+then the card's name and power limit.
 
 Swaps put back one part of the dispatch layer's default path the way the
-port ran before it (for checkouts that have the layer):
+port ran before it (for checkouts that have the layer and no program
+cache):
   serial        BMH_INFLIGHT=1, one batch at a time
   sync_copies   uploads and the final device->host copy by plain .to() and
                 .cpu(), without pinned memory
@@ -96,6 +106,55 @@ def _apply_swaps(swaps: list[str]) -> None:
             raise SystemExit(f"ab_trees: unknown swap {swap!r}")
 
 
+def count_syncs(fn):
+    """fn() with the host's waits for the card counted: `event_waits`
+    (torch.cuda.Event.synchronize, which the pipeline's copies and loop
+    flags wait on) and `torch_syncs` (operations that read a card tensor on
+    the host: .item(), .tolist(), nonzero, a boolean mask, a copy to
+    pageable memory; sync debug mode "warn" reports each).  Returns (fn's
+    result, the counts)."""
+    import warnings
+
+    import torch
+
+    counts = {"event_waits": 0, "torch_syncs": 0}
+    event_sync = torch.cuda.Event.synchronize
+
+    def counted(self):
+        counts["event_waits"] += 1
+        return event_sync(self)
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.Event.synchronize = counted
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.Event.synchronize = event_sync
+    counts["torch_syncs"] = sum("synchronizing CUDA operation" in str(w.message)
+                                for w in seen)
+    return out, counts
+
+
+def _measures(fn) -> dict:
+    """Peak memory, host waits and a profiled call of fn (see the module
+    docstring)."""
+    import torch
+    from bmh_tpu_torch.utils import tracing
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    prof = tracing.device_profile(fn)
+    return {"peak_bytes": torch.cuda.max_memory_allocated(), **syncs,
+            "device_ms": prof["device_ms"], "busy_ms": prof["busy_ms"],
+            "prof_wall_ms": prof["prof_wall_ms"], "idle_share": prof["idle_share"]}
+
+
 def turn(root: str, swaps: list[str], seed: int) -> dict:
     """One turn in this process: the rates of every row, as a dict."""
     import hashlib
@@ -112,16 +171,24 @@ def turn(root: str, swaps: list[str], seed: int) -> dict:
         # the pure-Python RLE1 and zlib's CRC would time another host path
         raise SystemExit(f"ab_trees: {root} has no host library (csrc/bmh_io.cpp)")
 
+    try:
+        from bmh_tpu_torch.models import programs
+    except ImportError:
+        programs = None
     _apply_swaps(swaps)
     data = smoke_input(seed)
     mb = len(data) / 1e6
-    out = {"rows": {}}
+    out = {"rows": {}, "measures": {}}
     for label, sort3, lf2 in ROWS:
         config.DEFAULT.pallas_sort = sort3
         config.DEFAULT.lf2 = lf2
+        t = time.perf_counter()
         blob = bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+        first_c = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
         if bt.decompress_bytes(blob, device="cuda") != data:
             raise SystemExit(f"ab_trees: {root} {label}: round trip not bit-exact")
+        first_d = (time.perf_counter() - t) * 1e3
         c, d = [], []
         for _ in range(3):
             t = time.perf_counter()
@@ -132,7 +199,13 @@ def turn(root: str, swaps: list[str], seed: int) -> dict:
             d.append(time.perf_counter() - t)
         out["rows"][label] = {"compress": mb / statistics.median(c),
                               "decompress": mb / statistics.median(d)}
+        out["measures"][label] = {
+            "compress": {"first_ms": first_c, **_measures(
+                lambda: bt.compress_bytes(data, block_size=BLOCK, device="cuda"))},
+            "decompress": {"first_ms": first_d, **_measures(
+                lambda: bt.decompress_bytes(blob, device="cuda"))}}
         out["sha256"] = hashlib.sha256(blob).hexdigest()
+    out["programs"] = dict(programs.STATS) if programs is not None else None
     return out
 
 
@@ -202,6 +275,8 @@ def main() -> None:
         print(f"[ab] built {root} in {time.perf_counter() - t:.1f} s", flush=True)
 
     rates: dict = {name: [] for name, _, _ in arms}
+    measures: dict = {name: [] for name, _, _ in arms}
+    prog_stats: dict = {name: [] for name, _, _ in arms}
     shas = set()
     for rnd in range(a.turns):
         for name, root, swaps in (arms if rnd % 2 == 0 else arms[::-1]):
@@ -210,6 +285,8 @@ def main() -> None:
                                            "--seed", str(a.seed)]))
             shas.add(res["sha256"])
             rates[name].append(res["rows"])
+            measures[name].append(res["measures"])
+            prog_stats[name].append(res["programs"])
             print(f"[ab] round {rnd} {name}: {json.dumps(res['rows'])} "
                   f"({time.perf_counter() - t:.1f} s)", flush=True)
     if len(shas) != 1:
@@ -222,11 +299,15 @@ def main() -> None:
             for side in ("compress", "decompress"):
                 xs = [r[label][side] for r in rates[name]]
                 ratio = [x / r[label][side] for x, r in zip(xs, rates[first])]
+                ms = [m[label][side] for m in measures[name]]
                 lines.append({"arm": name, "tree": root, "swaps": swaps, "row": label,
                               "direction": side, "turns": len(xs),
                               "mb_s": _summary(xs),
                               f"over_{first}_median": statistics.median(ratio),
-                              "per_turn": xs})
+                              "per_turn": xs,
+                              "measures_median": {k: statistics.median(x[k] for x in ms)
+                                                  for k in ms[0]},
+                              "programs_per_turn": prog_stats[name]})
     card = _card()
     text = "\n".join(json.dumps(line) for line in lines)
     print(text)

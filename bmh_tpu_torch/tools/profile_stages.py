@@ -98,18 +98,21 @@ def decompress_stages(blob: bytes, dev) -> dict:
     staged, ms["host_stage_flat"] = _timed(
         lambda: pipeline._stage_flat_np(infos, idxs, cfg.decode_chunk_bits))
     words, lens_all, seg_start, seg_start_idx, seg_id, m, ns, shifts, maxl = staged
+    b_pad = shifts.size
     kcp = max(BLOCK // cfg.cursor_stride - 1, 1)
-    cps_np = np.zeros((len(idxs), kcp), np.int64)
+    cps_np = np.zeros((b_pad, kcp), np.int64)
     for row, i in enumerate(idxs):
         cps_np[row, : len(infos[i]["cps"])] = infos[i]["cps"]
+    ncopy_np = np.zeros(b_pad, np.int64)
+    ncopy_np[: len(idxs)] = ns[: len(idxs)]
 
     def upload():
         return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
                 (words.view(np.int32), lens_all, seg_start, seg_start_idx,
-                 seg_id, m, ns, shifts, cps_np)]
+                 seg_id, m, ns, shifts, cps_np, ncopy_np)]
 
     t, ms["upload"] = _timed(upload)
-    w, la, ss, ssi, sid, mt, nt, sh, cps = t
+    w, la, ss, ssi, sid, mt, nt, sh, cps, ncopy = t
     cb = cfg.decode_chunk_bits
 
     def tables():
@@ -121,12 +124,18 @@ def decompress_stages(blob: bytes, dev) -> dict:
     (codes, _), ms["gap_decode_rle0_flat"] = _timed(
         lambda: huffman.gap_decode_rle0_flat(wext, count_t, ss, ssi, sid, sym_b,
                                              mt, nt, BLOCK, cb, maxl))
-    last, ms["mtf_inverse"] = _timed(lambda: mtf.mtf_inverse(codes, nt, cfg.imtf_chunk))
+    last, ms["mtf_inverse"] = _timed(lambda: mtf.mtf_inverse(
+        codes[:b_pad], nt[:b_pad], cfg.imtf_chunk))
     _, ms["bwt_inverse_cursors"] = _timed(
-        lambda: bwt.bwt_inverse_cursors(last, sh, cps, nt, cfg.cursor_stride))
-    _, ms["whole_decode_flat"] = _timed(lambda: pipeline._compact_rows(
-        *pipeline.decode_flat(w, la, ss, ssi, sid, mt, nt, sh, cps, BLOCK, cb, maxl,
-                              cfg.cursor_stride), ns).cpu())
+        lambda: bwt.bwt_inverse_cursors(last, sh, cps, nt[:b_pad], cfg.cursor_stride))
+    _, ms["whole_decode_flat"] = _timed(lambda: pipeline.decode_flat_program(
+        w, la, ss, ssi, sid, mt, nt, sh, cps, ncopy, BLOCK, cb, maxl,
+        cfg.cursor_stride).cpu())
+    # the same batch as the pipeline runs it: a replay of the captured
+    # program and the copy of its output
+    _, ms["whole_batch_program"] = _timed(lambda: pipeline._decompress_drain(
+        pipeline._decompress_dispatch(infos, idxs, BLOCK, cfg.cursor_stride, dev),
+        idxs, [None] * len(idxs)))
     return ms
 
 

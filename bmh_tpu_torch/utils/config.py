@@ -1,8 +1,9 @@
 """Runtime configuration: a copy of bmh_tpu's CodecConfig reading the same
 BMH_* environment knobs, so one environment configures both packages.
 
-The port reads the knobs at call time and keeps no compiled-program cache;
-the kernel build cache (ops/_build.py) keys on source and flags only.
+The port reads the knobs at call time; the program cache
+(models/programs.py) keys every program on every knob a program reads,
+and the kernel build cache (ops/_build.py) keys on source and flags only.
 `pallas_sort` (BMH_PALLAS_SORT, off by default as in bmh_tpu) sends every
 BWT sort inside its envelope through kernel K5 (ops/bwt._stable_sort3);
 full_rounds, tier1_rounds, tier2_div and sparse_cap_div shape the

@@ -47,6 +47,14 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               once more each with BMH_PALLAS_SORT=1: golden SHA-256,
               bit-exact; wall ms, device ms and busy ms (profiler), idle
               share and peak memory of each direction, LAST_DISPATCH
+     graphs   the program layer (models/programs.py): the stream from an
+              empty program cache at BMH_INFLIGHT 1 and 4, K5 off and on:
+              golden SHA-256, bit-exact, graphs captured and replayed,
+              capture seconds, host waits per batch (ab_trees.count_syncs),
+              wall / device / busy ms, idle share, peak memory cold and
+              warm; the 256-step code-length loop as a graph of its own,
+              its replay's card time and device operations; what the loop
+              flags cost a compress (replays with the rounds given)
   8. blocks   the stream's first 2 MiB at 1 MiB blocks, at 100000-byte
               blocks and at BMH_CURSOR_STRIDE=64: bmh_tpu's SHA-256 for each
               (torch_golden.json "cases"), bit-exact
@@ -76,8 +84,12 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               wall ms, MB/s, peak memory of each direction
  16. micro-   bmh_tpu_torch.tools.microbench, every case at 3 timed calls;
      bench    its agreement checks must hold; its JSON line
-Each phase after the main path's reads its own launch counts, set to 0
-just before it; they go beside the main path's in the kernels line
+Both compress programs and the flat decode route run as captured CUDA
+graphs (models/programs.py); a wrapper's launches inside a graph are
+counted at every replay.  The kernels' inputs are taken from a program's
+warm-up run (the cache is emptied first: a replay runs no Python).  Each
+phase after the main path's reads its own launch counts, set to 0 just
+before it; they go beside the main path's in the kernels line
 (launches_by_run).  `[seconds]` lines give each phase's time.  The line
 before the last is the kernels JSON; the last line is {"ok": true,
 "device": {...}}.  `--dist-rank` runs one process of phase 9.
@@ -163,6 +175,7 @@ def capture_kernel_inputs(fn):
     arguments (cloned), so the comparisons run at the shapes the path gives
     each kernel (K4's include the hop the path chose).  Returns (the
     captured arguments by kernel, fn's result)."""
+    from bmh_tpu_torch.models import programs
     from bmh_tpu_torch.ops import decode_kernels, ibwt_kernel, imtf_kernel
 
     captured: dict = {}
@@ -172,11 +185,15 @@ def capture_kernel_inputs(fn):
 
     def recorder(name, orig):
         def rec(*args):
-            captured.setdefault(name, [a.clone() if torch.is_tensor(a) else a
-                                       for a in args])
+            if name not in captured:
+                captured[name] = [a.clone() if torch.is_tensor(a) else a
+                                  for a in args]
             return orig(*args)
         return rec
 
+    # a cached program replays without running its Python: dropped, the
+    # next call's warm-up hands the wrappers their real inputs
+    programs.clear()
     try:
         for (mod, name), orig in zip(patched, originals):
             setattr(mod, name, recorder(name, orig))
@@ -192,6 +209,7 @@ def capture_sort_inputs(bt, data: bytes) -> dict:
     """Compress `data` once with BMH_PALLAS_SORT on, recording (cloned) the
     first K5 call of each shape: (32, 131072) is the first doubling round,
     (1, 262144) the sparse tier-1 set."""
+    from bmh_tpu_torch.models import programs
     from bmh_tpu_torch.ops import sort_kernel
     from bmh_tpu_torch.utils import config
 
@@ -199,9 +217,11 @@ def capture_sort_inputs(bt, data: bytes) -> dict:
     orig = sort_kernel.sort3
 
     def rec(*args):
-        captured.setdefault(tuple(args[0].shape), [a.clone() for a in args])
+        if tuple(args[0].shape) not in captured:
+            captured[tuple(args[0].shape)] = [a.clone() for a in args]
         return orig(*args)
 
+    programs.clear()
     config.DEFAULT.pallas_sort = True
     sort_kernel.sort3 = rec
     try:
@@ -753,6 +773,180 @@ def inflight_phase(bt, data: bytes, golden: dict | None, card: str) -> None:
                         for (side, k5, d), v in walls.items()}), flush=True)
 
 
+def graphs_phase(bt, data: bytes, golden: dict | None, card: str) -> dict:
+    """The program layer (models/programs.py) on the stream, at BMH_INFLIGHT
+    1 and 4, with K5 off and on.  Each setting starts from an empty program
+    cache: a first compress and decompress (each shape warmed up, captured,
+    replayed), then a warm call of each (replays only) whose host waits for
+    the card are counted (ab_trees.count_syncs), then one of each under the
+    profiler.  Printed: the golden SHA-256 and the bit-exact round trip,
+    graphs captured and replayed, capture seconds, host waits per batch,
+    wall / device / busy ms, idle share and peak memory.  Returns the warm
+    calls' launches."""
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.tools.ab_trees import count_syncs
+    from bmh_tpu_torch.utils import config
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+    for sort3 in (False, True):
+        for depth in (1, 4):
+            config.DEFAULT.pallas_sort = sort3
+            config.DEFAULT.inflight = depth
+            tag = f"K5={int(sort3)} inflight={depth}"
+            try:
+                programs.clear()
+                row: dict = {}
+                for side in ("compress", "decompress"):
+                    fn = ((lambda: bt.compress_bytes(data, block_size=BLOCK, device="cuda"))
+                          if side == "compress" else
+                          (lambda: bt.decompress_bytes(blob, device="cuda")))
+                    programs.reset_stats()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    out = fn()
+                    cold_ms = (time.perf_counter() - t) * 1e3
+                    cold = dict(programs.STATS)
+                    cold_peak = (torch.cuda.max_memory_allocated(),
+                                 torch.cuda.max_memory_reserved())
+                    if side == "compress":
+                        blob = out
+                        sha = hashlib.sha256(blob).hexdigest()
+                        require(golden is None or sha == golden["container_sha256"],
+                                f"[graphs] {tag}: the container differs from bmh_tpu's")
+                    else:
+                        require(out == data, f"[graphs] {tag}: not bit-exact")
+                    programs.reset_stats()
+                    _build.reset_launches()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    out2, syncs = count_syncs(fn)
+                    torch.cuda.synchronize()
+                    warm_ms = (time.perf_counter() - t) * 1e3
+                    warm = dict(programs.STATS)
+                    counts[f"graphs {side} {tag}"] = dict(_build.LAUNCHES)
+                    require(out2 == out, f"[graphs] {tag}: a replay's {side} differs")
+                    require(warm["captures"] == 0 and warm["hits"] == warm["runs"] > 0,
+                            f"[graphs] {tag}: the warm {side} captured: {warm}")
+                    batches = warm["runs"]
+                    row[side] = {
+                        "cold_wall_ms": cold_ms, "captures": cold["captures"],
+                        "graphs_captured": cold["graphs"], "capture_s": cold["capture_s"],
+                        "warm_wall_ms": warm_ms, "batches": batches,
+                        "graph_replays": warm["replays"], "flag_reads": warm["flag_reads"],
+                        "host_waits": syncs,
+                        "host_waits_per_batch": (syncs["event_waits"]
+                                                 + syncs["torch_syncs"]) / batches,
+                        "cold_peak_allocated": cold_peak[0],
+                        "cold_peak_reserved": cold_peak[1],
+                        "warm_peak_allocated": torch.cuda.max_memory_allocated(),
+                        "warm_reserved": torch.cuda.memory_reserved(),
+                        "profile": {k: v for k, v in device_profile(fn).items()
+                                    if k != "top"}}
+                note = " (bmh_tpu's)" if golden else ""
+                print(f"[graphs] {tag} {card}: sha256 {sha}{note}, bit-exact; "
+                      f"{json.dumps(row)}", flush=True)
+            finally:
+                config.DEFAULT.pallas_sort = False
+                config.DEFAULT.inflight = 4
+    huffman_graph(bt, data, card)
+    flag_cost(bt, data, card)
+    print(f"[graphs] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def flag_cost(bt, data: bytes, card: str) -> None:
+    """What the loops' flag reads cost a compress: each batch of the
+    stream's compress (default knobs) replayed as the pipeline replays it,
+    a flag read a loop round, and again with each loop's rounds given, no
+    read (what a conditional WHILE node on the card would save), in turns
+    (flags, given, given, flags) five times; host clock around each
+    batch's input copy, replay and synchronize, summed over the batches.
+    Both must write the same output."""
+    from bmh_tpu_torch.models import programs
+
+    calls = []
+    run = programs.run
+
+    def rec(device, k, fn, inputs, out_len=None):
+        calls.append((torch.device(device), k, inputs))
+        return run(device, k, fn, inputs, out_len)
+
+    programs.run = rec
+    try:
+        bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+    finally:
+        programs.run = run
+    progs = [programs._cache_for(dev).entries[k] for dev, k, _ in calls]
+    trips, outs = [], []
+    for prog, (_, _, inputs) in zip(progs, calls):
+        prog.load(inputs)
+        trips.append(prog.replay())
+        outs.append(prog.out.clone())
+    ms: dict = {"flags": [], "given": []}
+    for _ in range(5):
+        for mode in ("flags", "given", "given", "flags"):
+            total = 0.0
+            for prog, (_, _, inputs), t_i, want in zip(progs, calls, trips, outs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                prog.load(inputs)
+                prog.replay(None if mode == "flags" else t_i)
+                torch.cuda.synchronize()
+                total += time.perf_counter() - t
+                require(torch.equal(prog.out, want),
+                        f"[graphs] a replay with {mode} rounds wrote another output")
+            ms[mode].append(total * 1e3)
+    reads = sum(sum(t) + len(t) for t in trips)
+    print(f"[graphs] flag reads of a compress {card}: {len(calls)} batches, loop "
+          f"rounds {trips}, {reads} reads; ms a call, median of 10: with the "
+          f"reads {statistics.median(ms['flags']):.3f}, rounds given "
+          f"{statistics.median(ms['given']):.3f}; runs {json.dumps(ms)}", flush=True)
+
+
+def huffman_graph(bt, data: bytes, card: str) -> None:
+    """code_lengths_device, the fixed 256-step loop, on the histograms of
+    the stream's first 32 blocks, as a program of its own: its replay's
+    card time (CUDA events) and kernels (one profiled replay), against the
+    same function run as it is (host clock, synchronized)."""
+    from bmh_tpu_torch.models import pipeline, programs
+    from bmh_tpu_torch.ops import bwt, huffman
+    from bmh_tpu_torch.utils import config, tracing
+
+    arr = np.frombuffer(data[: 32 * BLOCK], np.uint8)
+    batch = torch.from_numpy(arr.reshape(32, BLOCK).copy()).cuda()
+    n = torch.full((32,), BLOCK, dtype=torch.int64, device="cuda")
+    last = bwt.bwt_forward_cp(batch, n, config.DEFAULT.cursor_stride)[0]
+    freqs = pipeline._symbols(last, n)[2]
+    fn = huffman.code_lengths_device
+    prog = programs._Program(programs._cache_for(torch.device("cuda")), fn,
+                             (freqs.cpu().numpy(),))
+    prog.load((freqs.cpu().numpy(),))
+    prog.warm_up()
+    prog.capture()
+    prog.replay()
+    torch.cuda.synchronize()
+    eager = fn(freqs)
+    require(torch.equal(prog.out, eager), "[graphs] the code-length graph differs")
+    replay_ms = cuda_ms(prog.replay, 10)
+    ops = len(tracing.device_profile(prog.replay)["spans"])
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        fn(freqs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    present = int((freqs > 0).sum(1).max())
+    print(f"[graphs] code_lengths_device at {list(freqs.shape)} (at most {present} "
+          f"symbols in a row) {card}: one graph of {ops} device operations (kernels, "
+          f"fills, copies), replay {replay_ms:.4f} ms by CUDA events "
+          f"({replay_ms * 1e3 / max(ops, 1):.2f} us each); run as it is {statistics.median(walls):.3f} ms (host clock, "
+          f"median of 5)", flush=True)
+
+
 def blocks_phase(bt, data: bytes, golden: dict | None, card: str) -> None:
     """Round trips the main phases do not reach: 1 MiB blocks (rows above
     2^18 sort through torch.sort; K3 and K4 at Nmax 2^20), 100000-byte
@@ -1120,7 +1314,7 @@ def maxblock_phase(bt, data: bytes, seed: int, golden: dict | None,
     1 and 4: one container, bit-exact; wall ms, MB/s and peak memory of
     each direction.
     Returns the launches of each run, counted from 0 just before it."""
-    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.models import pipeline, programs
     from bmh_tpu_torch.ops import _build, bwt, sort_kernel
     from bmh_tpu_torch.utils import config, synth
 
@@ -1128,15 +1322,19 @@ def maxblock_phase(bt, data: bytes, seed: int, golden: dict | None,
     big = bt.api.MAX_BLOCK_SIZE
     counts: dict = {}
 
+    warmups: dict = {}
+
     def run(label, fn):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
+        w0 = programs.STATS["warmups"]
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
         counts[label] = dict(_build.LAUNCHES)
+        warmups[label] = programs.STATS["warmups"] - w0
         return out, wall, torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
     want = golden["cases"]["blocks_2mib"] if golden is not None else None
@@ -1211,8 +1409,12 @@ def maxblock_phase(bt, data: bytes, seed: int, golden: dict | None,
             config.DEFAULT.inflight = 4
         blobs64[depth] = blob
         require(out == stream, f"{d_label}: not bit-exact")
-        require(launched(counts[d_label]) and counts[d_label]["ibwt_walk"] == 1,
-                f"{d_label}: not one dispatch through every kernel: {counts[d_label]}")
+        # one dispatch: one walk, and one more in the program's warm-up
+        # where this shape was first seen
+        require(launched(counts[d_label])
+                and counts[d_label]["ibwt_walk"] == 1 + warmups[d_label],
+                f"{d_label}: not one dispatch through every kernel: {counts[d_label]}, "
+                f"{warmups[d_label]} warm-ups")
         print(f"[maxblock] 64 MiB, {len(stream) // big} x {big} in one dispatch, "
               f"BMH_INFLIGHT {depth} "
               f"{card}: {len(stream)} -> {len(blob)} bytes, bit-exact; compress "
@@ -1422,6 +1624,8 @@ def main() -> None:
     clock.lap("routes, hostile")
     inflight_phase(bt, data, golden if check_golden else None, card)
     clock.lap("inflight")
+    graph_counts = graphs_phase(bt, data, golden if check_golden else None, card)
+    clock.lap("graphs")
     blocks_phase(bt, data, golden if check_golden else None, card)
     clock.lap("blocks")
     dist_phase(bt, data, card)
@@ -1432,6 +1636,7 @@ def main() -> None:
     #        path's launches, counted from 0 just before it, go beside the
     #        main path's in the kernels line
     paths = cli_phase(data, golden if check_golden else None, card)
+    paths.update(graph_counts)
     clock.lap("cli")
     paths["stream decode"] = stream_phase(bt, data, card)
     paths["oracle container decode"] = oracle_phase(bt, data, card)

@@ -97,10 +97,10 @@ def test_long_codes_match_bmh_tpu():
 
     (tw, tl, tss, tssi, tsid, tms, _, _, tmaxl) = (
         torch.from_numpy(x) if isinstance(x, np.ndarray) else x
-        for x in tpipe._stage_flat_np(blocks, [0], chunk_bits))
+        for x in tpipe._stage_flat_np(blocks, [0], chunk_bits, pad=False))
     assert tmaxl == jmaxl == 31
     wext, count_t, tsym = tpipe._tables(tw.view(torch.int32), tl, tsid, chunk_bits)
     got = thuf.gap_decode_flat(wext, count_t, tss, tssi, tsid, tsym, tms, nmax,
                                chunk_bits, tmaxl)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:1])
+    np.testing.assert_array_equal(got[:1].numpy(), np.asarray(want)[:1])
     np.testing.assert_array_equal(got[0, :m].numpy(), stream)

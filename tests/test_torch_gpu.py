@@ -440,9 +440,12 @@ def test_two_mib_block_decode_matches_plain(cuda, monkeypatch):
     their plain versions exactly."""
     from bmh_tpu_torch.ops import decode_kernels as dk
 
+    from bmh_tpu_torch.models import programs
+
     big = bt.api.MAX_BLOCK_SIZE
     data = synth.smoke_input(0, text_bytes=big, random_bytes=1 << 19)
     blob = bt.compress_bytes(data, block_size=big, device=cuda)
+    programs.clear()  # the decode's warm-up run hands the kernels their inputs
     captured = {}
     wrappers = [(dk, "phase_a"), (dk, "phase_b"), (imtf_kernel, "imtf_chunks"),
                 (ibwt_kernel, "ibwt_walk")]
@@ -450,8 +453,9 @@ def test_two_mib_block_decode_matches_plain(cuda, monkeypatch):
         orig = getattr(mod, name)
 
         def rec(*args, _name=name, _orig=orig):
-            captured.setdefault(_name, [a.clone() if torch.is_tensor(a) else a
-                                        for a in args])
+            if _name not in captured:
+                captured[_name] = [a.clone() if torch.is_tensor(a) else a
+                                   for a in args]
             return _orig(*args)
 
         monkeypatch.setattr(mod, name, rec)
@@ -471,3 +475,105 @@ def test_two_mib_block_decode_matches_plain(cuda, monkeypatch):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     monkeypatch.setattr(config.DEFAULT, "lf2", False)
     assert bt.decompress_bytes(blob, device=cuda) == data
+
+
+# --- the program layer: captured CUDA graphs ---------------------------------
+
+def _program_inputs(seed: int):
+    """One 8-block batch of 64 KiB blocks: compress staging and its decode
+    staging (the flat route)."""
+    from bmh_tpu_torch.models import pipeline
+
+    data = synth.smoke_input(seed, text_bytes=7 << 16, random_bytes=1 << 16)
+    arrs = [np.frombuffer(data[i:i + 65536], np.uint8) for i in range(0, len(data), 65536)]
+    batch = np.zeros((8, 65536), np.uint8)
+    ns = np.ones(8, np.int64)
+    for r, a in enumerate(arrs):
+        batch[r, : a.size] = a
+        ns[r] = a.size
+    blocks = bt.api._parse(bt.compress_bytes(data, block_size=65536, device="cpu"))[0]
+    return data, (batch, ns), blocks, pipeline
+
+
+def test_capture_has_no_sync_and_replay_equals_eager(cuda):
+    """A compress program captured under set_sync_debug_mode("error") (the
+    warm-up, which reads its loop flags, outside it), replayed: its output
+    equals the eager run of the same function; a second call of the same
+    shape captures nothing; LAUNCHES counts every replay."""
+    import functools
+
+    from bmh_tpu_torch.models import programs
+
+    _, (batch, ns), _, pipeline = _program_inputs(1)
+    fn = functools.partial(pipeline.compress_program, stride=4096, hard=False, b_pad=8)
+    k = programs.key("test_compress", b_pad=8, nmax=65536, stride=4096)
+    cache = programs._cache_for(cuda)
+    prog = programs._Program(cache, fn, (batch, ns))
+    prog.load((batch, ns))
+    prog.warm_up()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.capture()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = fn(torch.from_numpy(batch).to(cuda), torch.from_numpy(ns).to(cuda))
+    _build.reset_launches()
+    trips = prog.replay()
+    replayed = dict(_build.LAUNCHES)
+    assert torch.equal(prog.out, eager)
+    prog.out.zero_()
+    assert prog.replay(trips) == trips and torch.equal(prog.out, eager)
+    programs.clear()
+    programs.reset_stats()
+    first = programs.run(cuda, k, fn, (batch, ns)).wait()
+    assert programs.STATS["captures"] == 1
+    _build.reset_launches()
+    again = programs.run(cuda, k, fn, (batch, ns)).wait()
+    assert programs.STATS["captures"] == 1 and programs.STATS["hits"] == 1
+    assert np.array_equal(first, again) and np.array_equal(again, eager.cpu().numpy())
+    assert dict(_build.LAUNCHES) == replayed
+    assert programs.STATS["flag_reads"] > 0
+
+
+@pytest.mark.parametrize("sort3", [False, True], ids=["torch_sort", "sort3"])
+def test_programs_replay_the_main_path(cuda, monkeypatch, sort3):
+    """compress_bytes / decompress_bytes through the cache: the container
+    equals the CPU run's, a second call captures nothing and replays, K1-K4
+    (and K5 with its knob) count launches on the replay alone, and a replay
+    reads no tensor on the host (sync debug mode "error" around it)."""
+    from bmh_tpu_torch.models import programs
+
+    monkeypatch.setattr(config.DEFAULT, "pallas_sort", sort3)
+    data, _, _, _ = _program_inputs(2)
+    want = bt.compress_bytes(data, block_size=65536, device="cpu")
+    programs.clear()
+    assert bt.compress_bytes(data, block_size=65536, device=cuda) == want
+    assert bt.decompress_bytes(want, device=cuda) == data
+    programs.reset_stats()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert bt.compress_bytes(data, block_size=65536, device=cuda) == want
+        assert bt.decompress_bytes(want, device=cuda) == data
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 2
+    assert programs.STATS["replays"] > 0
+    assert all(_build.LAUNCHES[k] == 1 for k in ("gap_decode_phase_a",
+                                                 "gap_decode_phase_b",
+                                                 "imtf_chunks", "ibwt_walk"))
+    assert (_build.LAUNCHES["sort3"] > 0) == sort3
+
+
+def test_lf2_is_in_the_decode_key(cuda, monkeypatch):
+    """BMH_LF2 off after a decode with it on captures a new program (bmh_tpu's
+    _decode_flat key forgets it) and walks one row a step: both decode."""
+    from bmh_tpu_torch.models import programs
+
+    data, _, _, _ = _program_inputs(3)
+    blob = bt.compress_bytes(data, block_size=65536, device=cuda)
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    programs.reset_stats()
+    monkeypatch.setattr(config.DEFAULT, "lf2", False)
+    assert bt.decompress_bytes(blob, device=cuda) == data
+    assert programs.STATS["captures"] == 1

@@ -20,7 +20,8 @@ def test_import_leaves_jax_out():
             "bmh_tpu_torch.models.oracle, bmh_tpu_torch.parallel.mesh, "
             "bmh_tpu_torch.parallel.dataparallel, bmh_tpu_torch.utils.debug, "
             "bmh_tpu_torch.utils.metrics, bmh_tpu_torch.utils.corpus, "
-            "bmh_tpu_torch.tools.microbench; "
+            "bmh_tpu_torch.tools.microbench, bmh_tpu_torch.models.programs, "
+            "bmh_tpu_torch.ops.control; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -46,7 +47,8 @@ def test_sources_name_no_jax_import():
             "bmh_tpu_torch/utils/stream.py", "bmh_tpu_torch/models/oracle.py",
             "bmh_tpu_torch/parallel/mesh.py", "bmh_tpu_torch/parallel/dataparallel.py",
             "bmh_tpu_torch/utils/debug.py", "bmh_tpu_torch/utils/metrics.py",
-            "bmh_tpu_torch/utils/corpus.py", "bmh_tpu_torch/tools/microbench.py"} <= names
+            "bmh_tpu_torch/utils/corpus.py", "bmh_tpu_torch/tools/microbench.py",
+            "bmh_tpu_torch/models/programs.py", "bmh_tpu_torch/ops/control.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad

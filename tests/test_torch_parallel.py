@@ -17,6 +17,7 @@ import bmh_tpu
 import bmh_tpu_torch as bt
 from bmh_tpu_torch import api as tapi
 from bmh_tpu_torch.models import pipeline as tpipe
+from bmh_tpu_torch.models import programs as tprog
 from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.parallel import distributed as tdist
 from bmh_tpu_torch.utils import config as tconfig
@@ -96,7 +97,7 @@ def test_run_window_order_and_depth(depth):
     def dispatch(k):
         def fn(dev):
             assert threading.current_thread() is caller
-            return tpipe._HostCopy(torch.full((3,), k)), k
+            return tprog.HostCopy(torch.full((3,), k)), k
         return fn
 
     def batches():
@@ -115,7 +116,7 @@ def test_run_window_order_and_depth(depth):
     assert seen == list(range(9)) and not waiting
 
 
-class _WatchedCopy(tpipe._HostCopy):
+class _WatchedCopy(tprog.HostCopy):
     """A host copy that records the copies the window waited for."""
     waited: list = []
 

@@ -238,13 +238,15 @@ def _periodic_blocks(rng):
 @pytest.mark.parametrize("case,branches", [
     ("text", {"_sparse_refine_compact": 1}),
     ("adaptive", {"round_step": 5, "_sparse_refine_compact": 1}),
-    ("periodic", {"round_step": 6, "resume": 1}),
+    ("periodic", {"round_step": 6, "_sparse_refine_compact": 1}),
 ])
 def test_sparse_program_ranks_equal_full_rounds(knob, monkeypatch, case, branches):
     """The whole sparse/adaptive program lands on the full-rounds ranks
     through each of its branches: the compact refinement at once;
     whole-batch rounds past the capacity first; periodic blocks whose ties
-    outlast every gap, the resume."""
+    outlast every gap, where the refinement's result is dropped by the
+    select on the card that keeps the final ranks (bmh_tpu's resume
+    branch, which leaves them as they are)."""
     blocks, ns = {"text": _test_bwt_blocks, "adaptive": _adaptive_blocks,
                   "periodic": _periodic_blocks}[case](np.random.default_rng(1234))
     data, n = torch.from_numpy(blocks), _t(ns)
