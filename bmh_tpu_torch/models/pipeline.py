@@ -15,18 +15,24 @@ Decompress, bmh_tpu's three routes:
 * periodic (no checkpoints): the same gap decode to RLE0 symbols, then
   RLE0 inverse, inverse MTF (K3) and the doubling inverse BWT;
 * single-symbol (no payload): the constant RLE0 stream, then the inverses.
-The flat and periodic routes bring each block's decoded total back in the
-same single copy, and a total that differs from the block length raises.
+Each route brings each block's decoded total back in the same single copy,
+and a total that differs from the block length raises.
 
 Blocks are grouped by power-of-two size bucket and batched up to
 `max_dispatch` blocks; a batch is padded to a power of two of rows, and a
 decode batch's chunk count to bmh_tpu's bucket, so that programs are
-reused.  Both compress programs (`compress_program`) and the flat route
-(`decode_flat_program`) run through models/programs.py, bmh_tpu's cache of
-compiled programs: on a card each is a captured CUDA graph per shape and
-knob set, with no host decision inside (their loops are
-ops/control.while_loop).  The periodic and single-symbol routes run as
-they are.
+reused.  Both compress programs (`compress_program`), the compact upload's
+`inflate_program` and the three decode routes (`decode_flat_program`,
+`decode_periodic_program`, `decode_single_program`) run through
+models/programs.py, bmh_tpu's cache of compiled programs: on a card each
+is a captured CUDA graph per shape and knob set, with no host decision
+inside (their loops are ops/control.while_loop).
+
+Upload, bmh_tpu's: a compress batch goes to the card as the padded
+(b_pad, nmax) array, or, where that would waste more than 4 quanta of
+padding (2 MiB), as one compact byte stream that `inflate_program`
+rebuilds into the padded batch on the card, feeding the compress program
+without a trip to the host (`_upload_batch`, `UPLOADS`).
 
 Dispatch, bmh_tpu's: each batch is split into a *dispatch* (stage, upload,
 launch, start the one device->host copy) and a *drain* (wait for the copy,
@@ -264,24 +270,79 @@ def compress_program(data: torch.Tensor, n: torch.Tensor, stride: int,
     return _flatten_out(*out)
 
 
+# The compact upload (bmh_tpu's _upload_batch): a batch whose padding would
+# waste more than 4 quanta goes to the card as one byte stream padded to a
+# multiple of this quantum, and inflate_program rebuilds the padded batch
+# there; the quantum bounds the inflate programs a batch shape can need
+_UPLOAD_QUANTUM = 1 << 19
+
+# host->device uploads of compress batches since the process started:
+# batches sent plain and compact, the bytes of their data sent, and the
+# bytes the plain (rows, nmax) upload would have sent
+UPLOADS = {"plain": 0, "compact": 0, "bytes": 0, "plain_bytes": 0}
+
+
+def inflate_program(flat: torch.Tensor, offs: torch.Tensor, ns: torch.Tensor,
+                    nmax: int) -> torch.Tensor:
+    """bmh_tpu's _inflate_prog: (s,) uint8 compact stream, (B,) offsets and
+    lengths -> (B, nmax) uint8 padded batch, zero past each row's length.
+    Row r is flat[clamp(offs[r], 0, s - nmax) + arange(nmax)], one gather
+    (dynamic_slice's start clamp)."""
+    pos = torch.arange(nmax, device=flat.device)
+    start = offs.clamp(0, flat.shape[0] - nmax)
+    rows = flat[start[:, None] + pos[None, :]]
+    return torch.where(pos[None, :] < ns[:, None], rows, 0)
+
+
+def _upload_batch(arrs, idxs, ns: np.ndarray, nmax: int, rows: int):
+    """A dispatch's batch as the compress program's `data` input, by
+    bmh_tpu's rule: the plain (rows, nmax) array, or (where the padding
+    would waste more than 4 quanta) a Feed of inflate_program on the
+    compact stream of the blocks back to back, padded to a multiple of
+    _UPLOAD_QUANTUM.  Rows past the batch read offset 0 with length ns
+    (1), as in bmh_tpu."""
+    total = int(sum(arrs[i].size for i in idxs))
+    q = _UPLOAD_QUANTUM
+    s = max(-(-(total + nmax) // q) * q, q)
+    UPLOADS["plain_bytes"] += rows * nmax
+    if s + 4 * q >= rows * nmax:
+        batch = np.zeros((rows, nmax), dtype=np.uint8)
+        for row, i in enumerate(idxs):
+            batch[row, : arrs[i].size] = arrs[i]
+        UPLOADS["plain"] += 1
+        UPLOADS["bytes"] += batch.nbytes
+        return batch
+    flat = np.zeros(s, dtype=np.uint8)
+    offs = np.zeros(rows, dtype=np.int64)
+    off = 0
+    for row, i in enumerate(idxs):
+        flat[off: off + arrs[i].size] = arrs[i]
+        offs[row] = off
+        off += arrs[i].size
+    UPLOADS["compact"] += 1
+    UPLOADS["bytes"] += flat.nbytes + offs.nbytes + ns.nbytes
+    k = programs.key("inflate", b_pad=rows, nmax=nmax, s=s)
+    return programs.Feed(k, functools.partial(inflate_program, nmax=nmax),
+                         (flat, offs, ns))
+
+
 def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
                        b_pad: int, device):
     """Dispatch the blocks `idxs` on `device`: stage them (on a card as a
     b_pad-row batch, so that shapes repeat; the CPU keeps no graph to
-    reuse and takes the rows as they are), run the compress program (hard:
-    the full-rounds one) through the program cache and start the ONE copy
-    of [per-block meta | compacted payload words] to the host.  Returns
-    (the copy, (rows, meta columns))."""
+    reuse and takes the rows as they are) by _upload_batch, run the
+    compress program (hard: the full-rounds one) through the program cache
+    and start the ONE copy of [per-block meta | compacted payload words] to
+    the host.  Returns (the copy, (rows, meta columns))."""
     rows = b_pad if device.type == "cuda" else len(idxs)
-    batch = np.zeros((rows, nmax), dtype=np.uint8)
     ns = np.ones(rows, dtype=np.int64)  # dummy rows compress n = 1
     for row, i in enumerate(idxs):
-        batch[row, : arrs[i].size] = arrs[i]
         ns[row] = arrs[i].size
+    data = _upload_batch(arrs, idxs, ns, nmax, rows)
     k = programs.key("compress_full" if hard else "compress_sparse",
                      b_pad=rows, nmax=nmax, stride=stride)
     fn = functools.partial(compress_program, stride=stride, hard=hard, b_pad=b_pad)
-    return programs.run(device, k, fn, (batch, ns)), (rows, _meta_cols(nmax, stride))
+    return programs.run(device, k, fn, (data, ns)), (rows, _meta_cols(nmax, stride))
 
 
 def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
@@ -450,14 +511,24 @@ def decode_flat_periodic(words, lens_all, seg_start, seg_start_idx, seg_id,
     return decompress_stage2_fn(syms, ms, shifts, ns), totals
 
 
+def decode_periodic_program(words, lens_all, seg_start, seg_start_idx, seg_id,
+                            ms, ns, shifts, ncopy, nmax: int, chunk_bits: int,
+                            maxl: int) -> torch.Tensor:
+    """The periodic route as one program (bmh_tpu's _decode_flat_periodic):
+    decode_flat_periodic, then the rows compacted with their totals."""
+    data, totals = decode_flat_periodic(words, lens_all, seg_start, seg_start_idx,
+                                        seg_id, ms, ns, shifts, nmax, chunk_bits,
+                                        maxl)
+    return _compact_rows(data, totals, ncopy)
+
+
 def _decompress_dispatch(blocks, idxs, nmax: int, stride: int | None, device):
     """Dispatch one batch on `device` by the flat route, or the periodic
-    route when stride is None: stage it on the host, decode it, compact the
-    rows with their totals and start the ONE copy of [bytes | decoded
-    totals] to the host.  The flat route runs as a program of the cache
-    (a captured graph on a card); the periodic route runs as it is.
-    Nothing here waits for the card.  Returns (the copy, the block
-    lengths)."""
+    route when stride is None: stage it on the host, then run the route's
+    program through the cache (a captured graph on a card: decode, compact
+    the rows with their totals) and start the ONE copy of [bytes | decoded
+    totals] to the host.  Nothing here waits for the card.  Returns (the
+    copy, the block lengths)."""
     chunk_bits = config_mod.DEFAULT.decode_chunk_bits
     staged = _stage_flat_np(blocks, idxs, chunk_bits, device.type == "cuda")
     words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts, maxl = staged
@@ -468,10 +539,11 @@ def _decompress_dispatch(blocks, idxs, nmax: int, stride: int | None, device):
     arrays = (words.view(np.int32), lens_all, seg_start, seg_start_idx, seg_id,
               ms, ns, shifts)
     if stride is None:
-        data, totals = decode_flat_periodic(*(_put(x, device) for x in arrays),
-                                            nmax, chunk_bits, maxl)
-        out = _compact_rows(data, totals, _put(ncopy, device))
-        return programs.HostCopy(out[:n_out]), ns[:b]
+        k = programs.key("decode_periodic", b_pad=b_pad, nmax=nmax, nc=seg_id.size,
+                         chunk_bits=chunk_bits, maxl=maxl)
+        fn = functools.partial(decode_periodic_program, nmax=nmax,
+                               chunk_bits=chunk_bits, maxl=maxl)
+        return programs.run(device, k, fn, (*arrays, ncopy), n_out), ns[:b]
     kcp = max(max(nmax // stride, 1) - 1, 1)
     cps = np.zeros((b_pad, kcp), dtype=np.int64)
     for row, i in enumerate(idxs):
@@ -503,26 +575,52 @@ def _decompress_drain(part, idxs, results) -> None:
         results[i] = flat_np[offs[row]: offs[row] + ns[row]]
 
 
-def _decompress_single(blocks, idxs, nmax: int, device, results):
-    """Single-symbol blocks (no payload): the constant RLE0 stream, then the
-    inverse transforms.  api._validate_block_info has checked that it
-    decodes to the block length."""
+def _stage_single_np(blocks: list[dict], idxs: list[int], pad: bool = True):
+    """Host staging of a single-symbol batch: per row its one RLE0 symbol,
+    symbol count, shift and length, padded (with `pad`) to b_pad = the
+    batch rounded up to a power of two by bmh_tpu's dummy rows (symbol 0,
+    ms = ns = 1, shift 0).  Returns (sym, ms, shifts, ns, ncopy) numpy
+    arrays of b_pad rows, ncopy being ns with 0 past the batch."""
     b = len(idxs)
-    syms = np.zeros((b, nmax), dtype=np.int64)
-    ms = np.zeros(b, dtype=np.int64)
-    ns = np.zeros(b, dtype=np.int64)
-    shifts = np.zeros(b, dtype=np.int64)
+    b_pad = _next_pow2(b) if pad else b
+    sym = np.zeros(b_pad, dtype=np.int64)
+    ms = np.ones(b_pad, dtype=np.int64)
+    ns = np.ones(b_pad, dtype=np.int64)
+    shifts = np.zeros(b_pad, dtype=np.int64)
     for row, i in enumerate(idxs):
         blk = blocks[i]
+        sym[row] = int(np.nonzero(np.asarray(blk["present"]))[0][0])
         ms[row] = int(blk["rle_len"])
-        syms[row, : ms[row]] = int(np.nonzero(np.asarray(blk["present"]))[0][0])
         ns[row] = int(blk["orig_len"])
         shifts[row] = int(blk["shift"])
-    data = decompress_stage2_fn(*(torch.from_numpy(x).to(device)
-                                  for x in (syms, ms, shifts, ns)))
-    data_np = data.cpu().numpy()
-    for row, i in enumerate(idxs):
-        results[i] = data_np[row, : ns[row]]
+    ncopy = np.zeros(b_pad, dtype=np.int64)
+    ncopy[:b] = ns[:b]
+    return sym, ms, shifts, ns, ncopy
+
+
+def decode_single_program(sym, ms, shifts, ns, ncopy, nmax: int) -> torch.Tensor:
+    """The single-symbol route as one program (bmh_tpu's _batched_decode2 on
+    the constant RLE0 stream): each row's stream, its first ms[r] symbols
+    sym[r], made on the card; RLE0 inverse, inverse MTF (K3), doubling
+    iBWT; then the rows compacted with their decoded totals."""
+    pos = torch.arange(nmax, device=sym.device)[None, :]
+    syms = torch.where(pos < ms[:, None], sym[:, None], 0)
+    totals = ops_rle.rle0_decoded_len(syms, ms)
+    return _compact_rows(decompress_stage2_fn(syms, ms, shifts, ns), totals, ncopy)
+
+
+def _decompress_single(blocks, idxs, nmax: int, device):
+    """Dispatch one single-symbol batch (no payload) on `device` through
+    the cache (padded to b_pad on a card) and start its ONE copy of
+    [bytes | decoded totals] to the host.  api._validate_block_info has
+    checked that each stream decodes to its block length.  Returns
+    _decompress_dispatch's pair."""
+    staged = _stage_single_np(blocks, idxs, device.type == "cuda")
+    ns = staged[3]
+    b = len(idxs)
+    k = programs.key("decode_single", b_pad=ns.size, nmax=nmax)
+    fn = functools.partial(decode_single_program, nmax=nmax)
+    return programs.run(device, k, fn, staged, int(ns[:b].sum()) + 8 * b), ns[:b]
 
 
 # ---------------------------------------------------------------------------
@@ -678,5 +776,8 @@ class TorchBackend:
         LAST_DISPATCH["decompress_ndev"] = max(1, min(len(jobs), len(devs)))
         for nmax, all_idxs in sgroups.items():
             for idxs in _chunks(all_idxs):
-                _decompress_single(blocks, idxs, nmax, self.devices[0], results)
+                part = _dispatch_on(self.devices[0], f"decompress_single_b{len(idxs)}",
+                                    functools.partial(_decompress_single, blocks,
+                                                      idxs, nmax))
+                _decompress_drain(part, idxs, results)
         return results  # type: ignore[return-value]

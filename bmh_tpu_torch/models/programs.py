@@ -2,12 +2,17 @@
 
 bmh_tpu runs each batch through a `jax.jit` program cached by
 `functools.lru_cache(maxsize=128)` on its shapes and the knobs it reads
-(bmh_tpu/models/pipeline.py).  Here a program is a function of a batch's
-device tensors (models/pipeline.py: `compress_program`,
-`decode_flat_program`), and `run` keeps, per device, up to MAX_ENTRIES of
-them keyed by `key()`: the program's name, its static shapes and every
-knob any program reads (KNOBS; BMH_LF2 included, which bmh_tpu's
-`_decode_flat` leaves out of its key).
+(bmh_tpu/models/pipeline.py), and each of its sharded steps through a
+`jax.jit(shard_map(...))` (bmh_tpu/parallel/dataparallel.py).  Here a
+program is a function of device tensors (models/pipeline.py: the two
+compress programs, `inflate_program`, the three decode programs;
+parallel/dataparallel.py: the sharded stages and the round-trip step), and
+`run` / `run_device` keep, per device, up to MAX_ENTRIES of them keyed by
+`key()`: the program's name, its static shapes and every knob any program
+reads (KNOBS; BMH_LF2 included, which bmh_tpu's `_decode_flat` leaves out
+of its key).  An input may be another program's output (`Feed`): the
+feeding program runs first in the same turn of the device, and its output
+is copied into the fed program's static input on the card.
 
 On a card, the first call of a key copies the inputs into static buffers,
 runs the function once as it is on a side stream (the warm-up: kernel
@@ -20,15 +25,17 @@ splits the capture: the code before the loop, the loop's body and the code
 after it are graphs of their own, and the replay runs the body graph while
 its predicate, copied to pinned memory, says to go on (one small read a
 round; the `flag_reads` count).  A capture that fails raises: there is no
-eager path on a card.
+eager path on a card.  A collective of torch.distributed inside a program
+(the sharded steps, NCCL on a card) is captured like any other work: the
+warm-up has run it once, so its communicator exists before the capture.
 
 All of a device's graphs share one memory pool, and every run of a
 device's programs (input copies, replays, the output's copy to pinned host
-memory) takes the device's lock and waits, in stream order, for the run
-before it: a graph's temporaries, state and outputs then hold their values
-only within one run, and may share memory with any other graph.  The
-output copy is enqueued in the same run, so the next replay cannot
-overwrite it first.
+memory, or to new device tensors for `run_device`) takes the device's lock
+and waits, in stream order, for the run before it: a graph's temporaries,
+state and outputs then hold their values only within one run, and may share
+memory with any other graph.  The output copy is enqueued in the same run,
+so the next replay cannot overwrite it first.
 
 On the CPU (the tests) the same function runs as it is, through the same
 key and counts: the CPU has no graphs, so this is no fallback.
@@ -67,11 +74,13 @@ _cpu_keys: OrderedDict = OrderedDict()  # the CPU's keys: counts only
 
 
 def key(name: str, *, b_pad: int, nmax: int, nc: int = 0, chunk_bits: int = 0,
-        maxl: int = 0, stride: int = 0) -> tuple:
-    """The cache key of one program: its name and static shapes, then the
+        maxl: int = 0, stride: int = 0, s: int = 0, mesh: tuple = ()) -> tuple:
+    """The cache key of one program: its name and static shapes (s: the
+    compact upload stream's length; mesh: a sharded program's identity, its
+    maker's token, the group's size and this process's rank), then the
     value of every knob in KNOBS, read now."""
     cfg = config_mod.DEFAULT
-    return (name, b_pad, nmax, nc, chunk_bits, maxl, stride) + tuple(
+    return (name, b_pad, nmax, nc, chunk_bits, maxl, stride, s, mesh) + tuple(
         getattr(cfg, k) for k in KNOBS)
 
 
@@ -85,6 +94,18 @@ def reset_stats() -> None:
     with _stats_lock:
         for k in STATS:
             STATS[k] = 0.0 if k == "capture_s" else 0
+
+
+class Feed:
+    """A program's input that another program computes: `fn` under key `k`
+    on host arrays `inputs` (which may hold Feeds in turn).  The program it
+    feeds runs it first, in the same turn of the device, and takes its
+    output as that input: on a card by a device-to-device copy into the
+    static input buffer, in stream order; the output never comes to the
+    host."""
+
+    def __init__(self, k: tuple, fn, inputs):
+        self.k, self.fn, self.inputs = k, fn, inputs
 
 
 class HostCopy:
@@ -154,16 +175,20 @@ class _Program:
 
     def __init__(self, cache, fn, inputs):
         self.cache, self.fn = cache, fn
-        self.inputs = [torch.empty(x.shape, dtype=torch.from_numpy(x[:0]).dtype,
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype if torch.is_tensor(x)
+                                   else torch.from_numpy(x[:0]).dtype,
                                    device=cache.device) for x in inputs]
         self.steps = None
         self.out = None
 
     def load(self, inputs) -> None:
-        """Copy host arrays into the static inputs, in stream order."""
+        """Copy the inputs into the static ones, in stream order: host
+        arrays through pinned memory, device tensors (a Feed's output) on
+        the card."""
         for buf, x in zip(self.inputs, inputs):
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(x)).pin_memory(),
-                      non_blocking=True)
+            if not torch.is_tensor(x):
+                x = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+            buf.copy_(x, non_blocking=True)
 
     def warm_up(self) -> None:
         """One run as it is, on the cache's side stream.  Its memory, cached
@@ -287,42 +312,82 @@ def clear() -> None:
     torch.cuda.empty_cache()
 
 
-def run(device, k: tuple, fn, inputs, out_len: int | None = None) -> HostCopy:
-    """Run program `fn` on host arrays `inputs` (numpy) on `device` through
-    the cache entry `k`, and start the copy of the first `out_len` elements
-    of its output (all with None) to the host."""
-    device = torch.device(device)
+def _cpu_call(k: tuple, fn, inputs):
+    """Program `fn` run as it is on the CPU, through key `k`'s counts (its
+    Feeds first, as on a card)."""
+    args = [_cpu_call(x.k, x.fn, x.inputs) if isinstance(x, Feed)
+            else x if torch.is_tensor(x)
+            else torch.from_numpy(np.ascontiguousarray(x)) for x in inputs]
     _count(runs=1)
+    with _stats_lock:
+        hit = k in _cpu_keys
+        _cpu_keys[k] = True
+        _cpu_keys.move_to_end(k)
+        while len(_cpu_keys) > MAX_ENTRIES:
+            _cpu_keys.popitem(last=False)
+            STATS["evicted"] += 1
+    _count(hits=int(hit))
+    return fn(*args)
+
+
+def _replayed(c: _DeviceCache, k: tuple, fn, inputs) -> _Program:
+    """Program `fn` under key `k` on card cache `c` (its lock held): its
+    Feeds run first, then the inputs are loaded, the program captured if
+    its key is new, and replayed.  Returns the entry, whose `out` holds the
+    result until the device's next run."""
+    inputs = [_replayed(c, x.k, x.fn, x.inputs).out if isinstance(x, Feed) else x
+              for x in inputs]
+    _count(runs=1)
+    prog = c.entries.get(k)
+    if prog is not None:
+        c.entries.move_to_end(k)
+        _count(hits=1)
+        prog.load(inputs)
+    else:
+        prog = _Program(c, fn, inputs)
+        prog.load(inputs)
+        prog.warm_up()
+        prog.capture()
+        c.entries[k] = prog
+        while len(c.entries) > MAX_ENTRIES:
+            c.entries.popitem(last=False)
+            _count(evicted=1)
+    prog.replay()
+    return prog
+
+
+def run(device, k: tuple, fn, inputs, out_len: int | None = None) -> HostCopy:
+    """Run program `fn` (one output tensor) on `inputs` (numpy arrays, or
+    Feeds) on `device` through the cache entry `k`, and start the copy of
+    the first `out_len` elements of its output (all with None) to the
+    host."""
+    device = torch.device(device)
     if device.type != "cuda":
-        with _stats_lock:
-            hit = k in _cpu_keys
-            _cpu_keys[k] = True
-            _cpu_keys.move_to_end(k)
-            while len(_cpu_keys) > MAX_ENTRIES:
-                _cpu_keys.popitem(last=False)
-                STATS["evicted"] += 1
-        _count(hits=int(hit))
-        out = fn(*(torch.from_numpy(np.ascontiguousarray(x)) for x in inputs))
+        out = _cpu_call(k, fn, inputs)
         return HostCopy(out if out_len is None else out[:out_len])
     c = _cache_for(device)
     with torch.cuda.device(c.device), c.lock:
         if c.done is not None:
             torch.cuda.current_stream().wait_event(c.done)
-        prog = c.entries.get(k)
-        if prog is not None:
-            c.entries.move_to_end(k)
-            _count(hits=1)
-            prog.load(inputs)
-        else:
-            prog = _Program(c, fn, inputs)
-            prog.load(inputs)
-            prog.warm_up()
-            prog.capture()
-            c.entries[k] = prog
-            while len(c.entries) > MAX_ENTRIES:
-                c.entries.popitem(last=False)
-                _count(evicted=1)
-        prog.replay()
-        copy = HostCopy(prog.out if out_len is None else prog.out[:out_len])
+        out = _replayed(c, k, fn, inputs).out
+        copy = HostCopy(out if out_len is None else out[:out_len])
         c.done = copy.event
         return copy
+
+
+def run_device(device, k: tuple, fn, inputs) -> tuple:
+    """Run program `fn`, which returns a tuple of tensors, on `inputs`
+    (numpy arrays or tensors) on `device` through the cache entry `k`, and
+    return its outputs as tensors of their own on that device (on a card,
+    copies made in the same turn, which no later replay overwrites)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tuple(_cpu_call(k, fn, inputs))
+    c = _cache_for(device)
+    with torch.cuda.device(c.device), c.lock:
+        if c.done is not None:
+            torch.cuda.current_stream().wait_event(c.done)
+        outs = tuple(o.clone() for o in _replayed(c, k, fn, inputs).out)
+        c.done = torch.cuda.Event()
+        c.done.record()
+        return outs

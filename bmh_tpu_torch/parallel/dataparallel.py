@@ -12,11 +12,22 @@ tables -> device encode), decodes it by the production kernels (K1, K2 gap
 decode; K3 inverse MTF; K4 cursor inverse BWT), and reduces: the byte-match
 count by all_reduce(SUM), the compressed bit counts by
 all_gather_into_tensor, both over the mesh's group.
+
+Each function that a `make_*` call returns is one program of
+models/programs.py per input shape, as bmh_tpu's jax.jit(shard_map(...))
+is: on a card a captured CUDA graph with its collectives inside (each
+process captures its own, after a warm-up that runs every collective once
+and so makes the NCCL communicator), replayed on later calls; on the CPU
+(gloo) it runs as it is through the same keys.  The key holds a token of
+the `make_*` call, so a later maker (perhaps on a new group) never
+replays another's program; drop the programs (`programs.clear()`) before
+destroying a group whose programs were captured.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import socket
 
@@ -24,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models import programs
 from ..models.pipeline import compress_stage1_fn, decompress_stage2_fn
 from ..ops import bwt as ops_bwt
 from ..ops import huffman as ops_huf
@@ -35,18 +47,23 @@ from .mesh import BLOCK_AXIS, block_sharding, make_mesh, mesh_device
 A = ops_rle.RLE_ALPHABET
 
 
-def _tensor(x, device) -> torch.Tensor:
-    """A host array or a tensor on `device`: uint8 and bool keep their
-    type, other integers become int64 (uint32 code values included)."""
-    t = torch.as_tensor(np.asarray(x).astype(np.int64)
-                        if isinstance(x, np.ndarray) and x.dtype == np.uint32 else x)
-    if t.dtype not in (torch.uint8, torch.bool):
-        t = t.to(torch.int64)
-    return t.to(device)
+# one token a make_* call: its programs' keys
+_MAKERS = itertools.count()
+
+
+def _host(x):
+    """A program input: a host array (uint8 and bool keep their type,
+    other integers, uint32 code values included, become int64) or a
+    tensor, likewise."""
+    if torch.is_tensor(x):
+        return x if x.dtype in (torch.uint8, torch.bool) else x.to(torch.int64)
+    x = np.asarray(x)
+    return x if x.dtype in (np.uint8, np.bool_) else x.astype(np.int64)
 
 
 def _gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every process's (b, ...) stripe, concatenated in mesh order."""
+    """Every process's (b, ...) stripe, concatenated in mesh order (into a
+    buffer allocated here: inside a captured program, the graph's own)."""
     group = mesh.get_group(BLOCK_AXIS)
     n = dist.get_world_size(group)
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -54,36 +71,50 @@ def _gather(x: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
-def _sharded(mesh, fn):
-    """shard_map's counterpart: fn runs on this process's stripe of every
-    argument, and each of its outputs is gathered over the mesh."""
-    stripe = block_sharding(mesh)
+def _program(mesh, name: str, fn):
+    """fn(*inputs) -> a tuple of tensors, as a program of the cache on this
+    process's device, keyed on `name`, the first input's shape (b_pad = the
+    batch, nmax = its second axis) and this maker's token (which fixes the
+    maker's statics) with the group's size and this process's rank."""
     dev = mesh_device(mesh)
+    group = mesh.get_group(BLOCK_AXIS)
+    ident = (next(_MAKERS), dist.get_world_size(group), dist.get_rank(group))
 
     def run(*args):
-        outs = fn(*(stripe(_tensor(a, dev)) for a in args))
-        return tuple(_gather(o, mesh) for o in outs)
+        args = [_host(a) for a in args]
+        k = programs.key(name, b_pad=args[0].shape[0], nmax=args[0].shape[1],
+                         mesh=ident)
+        return programs.run_device(dev, k, fn, args)
 
     return run
+
+
+def _sharded(mesh, name: str, fn):
+    """shard_map's counterpart: fn runs on this process's stripe of every
+    argument, and each of its outputs is gathered over the mesh; one
+    program (_program)."""
+    stripe = block_sharding(mesh)
+    return _program(mesh, name, lambda *args: tuple(
+        _gather(o, mesh) for o in fn(*(stripe(a) for a in args))))
 
 
 def make_sharded_stage1(mesh, nmax: int):
     """Batched compress stage 1, block-sharded over the mesh:
     (B, nmax) uint8, (B,) -> (syms, ms, freqs, shifts, cps, aperiodic), each
     (B, ...).  B must be divisible by the mesh size."""
-    return _sharded(mesh, functools.partial(
+    return _sharded(mesh, "sharded_stage1", functools.partial(
         compress_stage1_fn, stride=config_mod.DEFAULT.cursor_stride))
 
 
 def make_sharded_encode(mesh, nmax: int):
     """(syms, ms, lens, codes) -> (words, total bits), block-sharded."""
-    return _sharded(mesh, ops_huf.encode_bitpack)
+    return _sharded(mesh, "sharded_encode", ops_huf.encode_bitpack)
 
 
 def make_sharded_decode2(mesh, nmax: int):
     """(syms, ms, shifts, ns) -> (decoded,): RLE0 inverse, inverse MTF and
     the doubling inverse BWT, block-sharded."""
-    return _sharded(mesh, lambda *a: (decompress_stage2_fn(*a),))
+    return _sharded(mesh, "sharded_decode2", lambda *a: (decompress_stage2_fn(*a),))
 
 
 def host_tables(freqs: np.ndarray) -> dict:
@@ -117,7 +148,8 @@ def make_roundtrip_step(mesh, nmax: int, chunk_bits: int = 256,
     each block's table -> gap decode of its blocks on one flat chunk axis
     at `chunk_bits` (K1, K2) -> RLE0 inverse -> inverse MTF at `mtf_chunk`
     (K3) -> cursor inverse BWT (K4).  total_ok is the all_reduce(SUM) of the
-    byte-match counts; all_bits and decoded are gathered in block order."""
+    byte-match counts; all_bits and decoded are gathered in block order.
+    One program (_program), its collectives inside."""
     stride = config_mod.DEFAULT.cursor_stride
     w_enc = ops_huf.words_cap(nmax)
     # pad so each block's chunk count is a multiple of 8, as bmh_tpu's
@@ -126,12 +158,11 @@ def make_roundtrip_step(mesh, nmax: int, chunk_bits: int = 256,
     nc_b = (w_enc * 32 + align_bits - 1) // align_bits * 8
     w_pad = nc_b * chunk_bits // 32
     stripe = block_sharding(mesh)
-    dev = mesh_device(mesh)
     group = mesh.get_group(BLOCK_AXIS)
 
-    def step(data, ns, enc_len, enc_code, count, sym):
-        data, ns, enc_len, enc_code, count, sym = (
-            stripe(_tensor(a, dev)) for a in (data, ns, enc_len, enc_code, count, sym))
+    def step(*args):
+        data, ns, enc_len, enc_code, count, sym = (stripe(a) for a in args)
+        dev = data.device
         bl = data.shape[0]
         nc = bl * nc_b
         syms, ms, _, shifts, cps, _ = compress_stage1_fn(data, ns, stride)
@@ -153,7 +184,7 @@ def make_roundtrip_step(mesh, nmax: int, chunk_bits: int = 256,
         dist.all_reduce(total_ok, op=dist.ReduceOp.SUM, group=group)
         return _gather(out, mesh), total_ok, _gather(bits, mesh)
 
-    return step
+    return _program(mesh, "roundtrip_step", step)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +222,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     next) of the Calgary book1 text or, without the corpus, the seeded
     stream of utils/synth.py; then api.compress_bytes / decompress_bytes
     of the same bytes over n_devices devices of this process, with
-    LAST_DISPATCH["compress_ndev"] checked."""
+    LAST_DISPATCH["compress_ndev"] checked.  The sharded stage and the step
+    run as programs of the cache: on a card, captured graphs with their
+    collectives inside."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' for "
                            "a dry run on gloo over the CPU")
@@ -208,6 +241,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         _dryrun(n_devices, device)
     finally:
         if made_group:
+            programs.clear()  # its captured collectives go before the group
             dist.destroy_process_group()
 
 

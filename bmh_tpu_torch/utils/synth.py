@@ -1,5 +1,7 @@
 """Seeded synthetic inputs: the stream of the GPU smoke run and the
-profiler, and kernel inputs made to hurt the designs of K1, K2 and K3."""
+profiler, the workloads of its upload and route phases (many small files,
+zero-heavy pages, a stream of repeated records), and kernel inputs made to
+hurt the designs of K1, K2 and K3."""
 
 from __future__ import annotations
 
@@ -37,6 +39,44 @@ def smoke_input(seed: int, text_bytes: int = TEXT_BYTES,
     text = np.where(within == seg[word] - 1, seps[word], letters[src])
     rnd = rng.integers(0, 256, random_bytes, dtype=np.uint8).tobytes()
     return text.tobytes() + rnd
+
+
+def small_files(seed: int, count: int = 2048, lo: int = 512,
+                hi: int = 16 << 10) -> list[bytes]:
+    """`count` small objects of lo..hi bytes (uniform), the way a log
+    shipper or a document store sees them: slices of smoke_input's
+    text-like stream, about one in 16 seeded random bytes instead.  The
+    default 2048 files hold about 17 MiB."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi + 1, count)
+    is_random = rng.random(count) < 1 / 16
+    text = smoke_input(seed, text_bytes=int(sizes.sum()), random_bytes=0)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    return [rng.integers(0, 256, n, dtype=np.uint8).tobytes() if r
+            else text[a:a + n] for n, r, a in zip(sizes, is_random, offs)]
+
+
+def zero_pages(seed: int, total: int = 32 << 20, page: int = 4096,
+               zero_share: float = 0.75) -> bytes:
+    """`total` bytes of `page`-byte pages, each all-zero with probability
+    `zero_share` and otherwise seeded random bytes (compressed or encrypted
+    contents): a sparse VM image or database file."""
+    rng = np.random.default_rng(seed)
+    n = total // page
+    pages = np.zeros((n, page), np.uint8)
+    full = rng.random(n) >= zero_share
+    pages[full] = rng.integers(0, 256, (int(full.sum()), page), dtype=np.uint8)
+    return pages.tobytes()
+
+
+def record_stream(seed: int, total: int = 8 << 20, record: int = 1024) -> bytes:
+    """One seeded random `record`-byte record repeated to `total` bytes (a
+    preallocated file of template records).  RLE1 leaves it whole, and a
+    block whose length the record divides is a power of it: every such
+    block takes the periodic route."""
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(0, 256, record, dtype=np.uint8).tobytes()
+    return (rec * -(-total // record))[:total]
 
 
 def phase_a_hostile_cases(seed: int, nc: int) -> list[tuple]:

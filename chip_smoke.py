@@ -39,7 +39,27 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               the stream's first MiB decoded at 65536-bit chunks: bit-exact
   5. routes   a 512 KiB tiled random 1024-byte motif (pathological batch,
               periodic blocks) and b"\x00" * 3 (single symbol) round-trip
-              on the card, containers equal to the CPU run's
+              on the card, containers equal to the CPU run's.  Then the
+              periodic and single-symbol programs at their users' sizes:
+              8 MiB of one seeded 1024-byte record (utils/synth.
+              record_stream: 64 periodic blocks, its first MiB bmh_tpu's
+              SHA-256) and 99 b"\x00" * 3 streams through
+              decompress_many(uniform=True) (batches 32, 32, 32, 3 -> 4);
+              each decode from an empty program cache and warm: graphs
+              captured and replayed, capture s, host waits a batch (the
+              drain only), a replay equal to the eager run, K1-K3 against
+              their plain versions at the captured shapes
+     upload   the compact upload and its inflate program: the main stream
+              stays plain; 2048 seeded small files (synth.small_files,
+              about 17 MiB) through compress_many(uniform=True) at 128 KiB
+              (64 compact batches) and 32 MiB of zero-heavy 4 KiB pages
+              (synth.zero_pages) at 1 MiB blocks (one compact batch): the
+              inflate's runs and bytes against the plain upload's,
+              bmh_tpu's SHA-256 (first 64 files, first 4 MiB of pages),
+              per-file containers equal compress_bytes of each file,
+              bit-exact decodes, cold and warm program counts, a replay
+              equal to the eager run, K5 (BMH_PALLAS_SORT=1) at the
+              inflated batch's shapes, K1-K4 at the pages' decode
   6. hostile  CRC-valid containers with a lying rle_len (a flat-route and
               a periodic-route block) raise ValueError, at BMH_INFLIGHT 1
               and 4
@@ -72,7 +92,10 @@ Phases, each of which raises (non-zero exit) on any mismatch:
  13. bench    bench.run_synthetic(total_mb=16) at BMH_INFLIGHT 1 and 4,
               bit-exact
  14. data-    make_roundtrip_step on a one-process NCCL group, 8 x 128 KiB
-     parallel with a ragged last block: rows, total and bits checked; K1-K4
+     parallel with a ragged last block, and the sharded stage 1: each a
+              captured program with its collectives inside, from an empty
+              cache and warm (no wait but its loops' flags, a replay equal
+              to the eager run); rows, total and bits checked; K1-K4
               launched and each equal to its plain version at the step's
               shapes (256-bit chunks, MTF chunk 128); then dryrun_multichip(1)
  15. max-     bmh_tpu's largest block: the stream at 2 MiB blocks, with and
@@ -84,7 +107,8 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               wall ms, MB/s, peak memory of each direction
  16. micro-   bmh_tpu_torch.tools.microbench, every case at 3 timed calls;
      bench    its agreement checks must hold; its JSON line
-Both compress programs and the flat decode route run as captured CUDA
+Every program of the port (both compress programs, the inflate, the
+three decode routes, the sharded stages and step) runs as captured CUDA
 graphs (models/programs.py); a wrapper's launches inside a graph are
 counted at every replay.  The kernels' inputs are taken from a program's
 warm-up run (the cache is emptied first: a replay runs no Python).  Each
@@ -205,10 +229,10 @@ def capture_kernel_inputs(fn):
     return captured, result
 
 
-def capture_sort_inputs(bt, data: bytes) -> dict:
-    """Compress `data` once with BMH_PALLAS_SORT on, recording (cloned) the
-    first K5 call of each shape: (32, 131072) is the first doubling round,
-    (1, 262144) the sparse tier-1 set."""
+def capture_sort_inputs(bt, data: bytes, fn=None) -> dict:
+    """Compress `data` once (or call fn()) with BMH_PALLAS_SORT on,
+    recording (cloned) the first K5 call of each shape: (32, 131072) is the
+    first doubling round, (1, 262144) the sparse tier-1 set."""
     from bmh_tpu_torch.models import programs
     from bmh_tpu_torch.ops import sort_kernel
     from bmh_tpu_torch.utils import config
@@ -225,7 +249,10 @@ def capture_sort_inputs(bt, data: bytes) -> dict:
     config.DEFAULT.pallas_sort = True
     sort_kernel.sort3 = rec
     try:
-        bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+        if fn is None:
+            bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+        else:
+            fn()
     finally:
         sort_kernel.sort3 = orig
         config.DEFAULT.pallas_sort = False
@@ -387,17 +414,12 @@ def hostile_kernel_inputs(card: str, shape: tuple[int, int]) -> None:
               flush=True)
 
 
-def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
-    """K1-K4 on the arguments captured from a decode (capture_kernel_inputs),
-    each with its plain version and the least work any implementation needs
-    for its bound."""
+def gap_decode_cases(cap: dict) -> list[dict]:
+    """decode_cases' K1 and K2 (the first carries its bound's note)."""
     from bmh_tpu_torch.ops import decode_kernels as dk
-    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
 
     wext, count_t, chunk_bits, maxl = cap["phase_a"]
     wext_b, count_b, entry, cb_b, maxl_b = cap["phase_b"]
-    (codes_tm,) = cap["imtf_chunks"]
-    table, starts, steps, hop = cap["ibwt_walk"]
     nc = wext.shape[1]
     fsm_steps = chunk_bits + 32
 
@@ -417,7 +439,10 @@ def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
         plain=lambda: dk.phase_a_plain(wext, count_t, chunk_bits, maxl),
         bytes=nbytes(wext, count_t) + 2 * 4 * 32 * nc, ops=k1_ops, reps=20,
         chain=fsm_steps, chain_unit="bits of a chunk (one thread walks them)",
-        shapes=[list(wext.shape), list(count_t.shape)]))
+        shapes=[list(wext.shape), list(count_t.shape)],
+        note=f"phase_a {k1_ops} / {12 * k1_steps} "
+             f"({k1_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
+             f"{12 * k1_steps / PEAK_OPS_PER_S * 1e3:.4f} ms), "))
     # K2: the least is the bytes, its output above all.  Its chain is a
     # codeword a turn: the call ends with the chunk that completes the most.
     k2_words = int((dk.phase_b(wext_b, count_b, entry, cb_b, maxl_b) >= 0).sum(0).max())
@@ -431,6 +456,23 @@ def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
         chain=k2_words, chain_unit="codewords of the longest chunk (one thread decodes them)",
         fill=lambda: torch.full((fsm_steps, nc), -1, dtype=torch.int32, device="cuda"),
         shapes=[list(wext_b.shape), list(count_b.shape), list(entry.shape)]))
+    return cases
+
+
+def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
+    """K1-K4 on the arguments captured from a decode (capture_kernel_inputs),
+    each with its plain version and the least work any implementation needs
+    for its bound.  A kernel the decode did not call has no case: K4 on the
+    periodic route (its doubling iBWT), K1, K2 and K4 on the single-symbol
+    one."""
+    from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel
+
+    cases = []
+    k1_note = ""
+    if "phase_a" in cap:  # K1 and K2 (not on the single-symbol route)
+        cases += gap_decode_cases(cap)
+        k1_note = cases[0].pop("note")
+    (codes_tm,) = cap["imtf_chunks"]
     # K3: the least is a constant per code (look up, move, store: 4).
     # Beside it, the serial shift's count (the sum of the codes on top), as
     # the bound was counted while the kernel shifted entry by entry.
@@ -448,14 +490,15 @@ def decode_cases(cap: dict, tag: str = "[kernels]") -> list[dict]:
         chain=k3_dense, chain_unit="non-zero codes of the densest lane",
         shapes=[list(codes_tm.shape)]))
     print(f"{tag} operations counted for the bounds, least work / as the "
-          f"earlier kernels worked: phase_a {k1_ops} / {12 * k1_steps} "
-          f"({k1_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
-          f"{12 * k1_steps / PEAK_OPS_PER_S * 1e3:.4f} ms), imtf_chunks {k3_ops} / "
+          f"earlier kernels worked: {k1_note}imtf_chunks {k3_ops} / "
           f"{k3_ops + k3_shift} ({k3_ops / PEAK_OPS_PER_S * 1e3:.4f} / "
           f"{(k3_ops + k3_shift) / PEAK_OPS_PER_S * 1e3:.4f} ms); "
           f"{k3_steps} of imtf_chunks' {m * k} codes are non-zero, "
           f"{k3_dense} of {m} in the densest lane, "
           f"{int(k3_lane_steps.median())} in the median lane", flush=True)
+    if "ibwt_walk" not in cap:  # the periodic and single-symbol routes
+        return cases
+    table, starts, steps, hop = cap["ibwt_walk"]
     b, kc = starts.shape
     cases.append(dict(
         name="ibwt_walk", source="bmh_tpu_torch/csrc/ibwt_walk.cu",
@@ -497,7 +540,7 @@ def hold(cases: list[dict], tag: str = "[kernels]") -> list[dict]:
         print(f"{tag} {c['name']} at {c['shapes']}{', ' + c['detail'] if 'detail' in c else ''}: "
               f"equal={equal} ms={ms:.4f} plain_ms={plain_ms:.2f} "
               f"bound_ms={max(t_bytes, t_ops):.4f} library_ms={library_ms}", flush=True)
-        if "chain" in c:
+        if c.get("chain"):  # (all-zero MTF codes: no step, no chain)
             print(f"{tag} {c['name']}: a thread's dependent chain is "
                   f"{c['chain']:.0f} {c['chain_unit']}, ms over them "
                   f"{ms * 1e6 / c['chain']:.1f} ns", flush=True)
@@ -1224,14 +1267,18 @@ def bench_phase(card: str) -> dict:
 
 def dataparallel_phase(bt, data: bytes, card: str) -> dict:
     """make_roundtrip_step on a one-process NCCL group over 8 blocks of
-    128 KiB of the stream with a ragged last block: the total, every row,
-    and the bits against the tables' lengths over the histograms; K1-K4
-    launched, each equal to its plain version on the step's captured inputs
-    (256-bit chunks, MTF chunk 128) and timed there; the step's wall and
-    device ms; then dryrun_multichip(1).  NCCL takes one process per card,
-    so on one card the group has one process.  Returns launch counts."""
+    128 KiB of the stream with a ragged last block: stage 1 and the step
+    each from an empty program cache and warm (program_run: a captured
+    graph with its collectives inside, no wait but the loops' flags), a
+    replay equal to the eager run; the total, every row, and the bits
+    against the tables' lengths over the histograms; K1-K4 launched, each
+    equal to its plain version on the step's captured inputs (256-bit
+    chunks, MTF chunk 128) and timed there; the step's wall and device ms;
+    then dryrun_multichip(1).  NCCL takes one process per card, so on one
+    card the group has one process.  Returns launch counts."""
     import torch.distributed as dist
 
+    from bmh_tpu_torch.models import programs
     from bmh_tpu_torch.ops import _build
     from bmh_tpu_torch.parallel import dataparallel as tdp
     from bmh_tpu_torch.parallel import mesh as tmesh
@@ -1249,10 +1296,22 @@ def dataparallel_phase(bt, data: bytes, card: str) -> dict:
     counts = {}
     try:
         mesh = tmesh.make_mesh(1, device="cuda")
-        freqs = tdp.make_sharded_stage1(mesh, nmax)(batch, ns)[2].cpu().numpy()
+        stage1 = tdp.make_sharded_stage1(mesh, nmax)
+        stage_out, _, _ = program_run(
+            lambda: stage1(batch, ns), "[dataparallel] sharded stage 1",
+            same=lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+        freqs = stage_out[2].cpu().numpy()
         tbl = tdp.host_tables(freqs)
         step = tdp.make_roundtrip_step(mesh, nmax)
         args = (batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        _, row, counts["dataparallel step warm"] = program_run(
+            lambda: step(*args), "[dataparallel] step",
+            same=lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+        require(row["host_waits"]["torch_syncs"] == 0
+                and row["host_waits"]["event_waits"] == row["flag_reads"],
+                f"[dataparallel] the step waited past its loop flags: {row}")
+        _, calls = program_calls(lambda: step(*args))
+        replay_equals_eager(calls, "[dataparallel]")
         _build.reset_launches()
         cap, (out, total_ok, bits) = capture_kernel_inputs(lambda: step(*args))
         counts["dataparallel step"] = dict(_build.LAUNCHES)
@@ -1293,8 +1352,315 @@ def dataparallel_phase(bt, data: bytes, card: str) -> dict:
               f"{time.perf_counter() - t:.1f} s, launches {counts['dataparallel dryrun']}",
               flush=True)
     finally:
+        # the captured collectives go before their communicator
+        programs.clear()
         dist.destroy_process_group()
     print(f"[dataparallel] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def program_calls(fn):
+    """fn() with programs.run and programs.run_device recording each call
+    (entry point, device, key, function, inputs, out_len).  Returns (fn's
+    result, the calls)."""
+    from bmh_tpu_torch.models import programs
+
+    calls = []
+    run, run_device = programs.run, programs.run_device
+
+    def rec_run(device, k, f, inputs, out_len=None):
+        calls.append(("run", device, k, f, inputs, out_len))
+        return run(device, k, f, inputs, out_len)
+
+    def rec_device(device, k, f, inputs):
+        calls.append(("run_device", device, k, f, inputs, None))
+        return run_device(device, k, f, inputs)
+
+    programs.run, programs.run_device = rec_run, rec_device
+    try:
+        return fn(), calls
+    finally:
+        programs.run, programs.run_device = run, run_device
+
+
+def eager_inputs(inputs) -> list:
+    """A program's inputs on the card, a Feed's program run as it is."""
+    from bmh_tpu_torch.models import programs
+
+    return [x.fn(*eager_inputs(x.inputs)) if isinstance(x, programs.Feed)
+            else x.cuda() if torch.is_tensor(x)
+            else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in inputs]
+
+
+def replay_equals_eager(calls: list, tag: str) -> list[str]:
+    """For the first recorded call of each program (and of each Feed's
+    program): its function run as it is on the card on that call's inputs
+    equals a replay of its cache entry, which must be warm (no capture).
+    Returns the program names checked."""
+    from bmh_tpu_torch.models import programs
+
+    todo, names = [], []
+    for entry, device, k, fn, inputs, out_len in calls:
+        for x in inputs:
+            if isinstance(x, programs.Feed):
+                todo.append(("run", device, x.k, x.fn, x.inputs, None))
+        todo.append((entry, device, k, fn, inputs, out_len))
+    for entry, device, k, fn, inputs, out_len in todo:
+        if k[0] in names:
+            continue
+        names.append(k[0])
+        eager = fn(*eager_inputs(inputs))
+        captures = programs.STATS["captures"]
+        if entry == "run":
+            got = programs.run(device, k, fn, inputs, out_len).wait()
+            want = (eager if out_len is None else eager[:out_len]).cpu().numpy()
+            same = np.array_equal(got, want)
+        else:
+            got = programs.run_device(device, k, fn, inputs)
+            same = all(torch.equal(a, b) for a, b in zip(got, eager))
+        require(programs.STATS["captures"] == captures,
+                f"{tag} {k[0]}: a warm key captured again")
+        require(same, f"{tag} {k[0]}: a replay differs from the eager run")
+    print(f"{tag} replay equals the eager run (its warm-up's function) for "
+          f"{names}", flush=True)
+    return names
+
+
+def program_run(fn, tag: str, same=None) -> tuple:
+    """fn() from an empty program cache (each new key warmed up, captured
+    under sync debug mode "error", replayed), then again warm (replays
+    only): captures, graphs and capture seconds of the cold call; replays,
+    flag reads and host waits (ab_trees.count_syncs) a batch of the warm
+    call; wall ms of both.  Fails if the warm call captured or gave
+    another result.  Returns (the result, the printed row, the warm call's
+    launches)."""
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.ops import _build
+    from bmh_tpu_torch.tools.ab_trees import count_syncs
+
+    programs.clear()
+    programs.reset_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    cold = dict(programs.STATS)
+    programs.reset_stats()
+    _build.reset_launches()
+    t = time.perf_counter()
+    out2, syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    warm = dict(programs.STATS)
+    launches = dict(_build.LAUNCHES)
+    require(out2 == out if same is None else same(out, out2),
+            f"{tag}: the warm call's result differs from the cold one's")
+    require(warm["captures"] == 0 and warm["hits"] == warm["runs"] > 0,
+            f"{tag}: the warm call captured: {warm}")
+    row = {"cold_wall_ms": cold_ms, "programs_run": cold["runs"],
+           "captures": cold["captures"], "graphs_captured": cold["graphs"],
+           "capture_s": cold["capture_s"], "cold_replays": cold["replays"],
+           "warm_wall_ms": warm_ms, "warm_runs": warm["runs"],
+           "warm_replays": warm["replays"], "flag_reads": warm["flag_reads"],
+           "host_waits": syncs,
+           "host_waits_per_run": (syncs["event_waits"] + syncs["torch_syncs"])
+           / warm["runs"]}
+    print(f"{tag}: {json.dumps(row)}; launches {launches}", flush=True)
+    return out, row, launches
+
+
+def routes_programs(bt, seed: int, golden: dict | None, card: str) -> dict:
+    """The periodic and single-symbol programs at their users' sizes: 8 MiB
+    of one seeded 1024-byte record (64 periodic blocks of 128 KiB, two
+    batches) and 99 b"\x00" * 3 streams through decompress_many(uniform)
+    (single-symbol batches of 32, 32, 32 and 3 padded to 4).  Each decode
+    from an empty cache and warm (program_run): bit-exact, no host wait in
+    a batch but its drain; wall and device ms (profiler); its first MiB's
+    container is bmh_tpu's (torch_golden.json records_1mib); a replay
+    equals the eager run; K1-K3 equal their plain versions at the captured
+    shapes.  Returns the warm decodes' launches."""
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.utils import container as C
+    from bmh_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    counts = {}
+    stream = synth.record_stream(seed)
+    head = bt.compress_bytes(stream[: 1 << 20], block_size=BLOCK, device="cuda")
+    sha = hashlib.sha256(head).hexdigest()
+    if golden is not None:
+        require(sha == golden["cases"]["records_1mib"]["container_sha256"],
+                "[routes] the record stream's first MiB differs from bmh_tpu's")
+    t = time.perf_counter()
+    blob = bt.compress_bytes(stream, block_size=BLOCK, device="cuda")
+    c_ms = (time.perf_counter() - t) * 1e3
+    require(all(C.unpack_block(r)[4] is None for r in C.unpack_file(blob)[2]),
+            "[routes] a record block has checkpoints: not the periodic route")
+    out, row, counts["routes periodic decode"] = program_run(
+        lambda: bt.decompress_bytes(blob, device="cuda"), "[routes] periodic decode")
+    require(out == stream, "[routes] the record stream is not bit-exact")
+    require(row["host_waits"]["torch_syncs"] == 0 and row["flag_reads"] == 0
+            and row["host_waits"]["event_waits"] == row["warm_runs"],
+            f"[routes] the periodic program waited inside a batch: {row}")
+    prof = device_profile(lambda: bt.decompress_bytes(blob, device="cuda"))
+    print(f"[routes] records {card}: {len(stream)} -> {len(blob)} bytes "
+          f"(first compress, its shape captured, {c_ms:.1f} ms; first MiB sha256 {sha}"
+          f"{' = bmh_tpu' if golden else ''}), decode bit-exact, profiled "
+          f"{json.dumps({k: v for k, v in prof.items() if k != 'top'})}", flush=True)
+    _, calls = program_calls(lambda: bt.decompress_bytes(blob, device="cuda"))
+    require(replay_equals_eager(calls, "[routes]") == ["decode_periodic"],
+            "[routes] the record stream did not take the periodic program")
+    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
+    hold(decode_cases(cap, "[routes] periodic"), "[routes] periodic")
+
+    singles = [b"\x00" * 3] * 99
+    blobs = bt.compress_many(singles, block_size=2048, device="cuda")
+    require(blobs == [bt.compress_bytes(b"\x00" * 3, block_size=2048, device="cpu")] * 99,
+            "[routes] a single-symbol container differs from the CPU run's")
+    out, row, counts["routes single decode"] = program_run(
+        lambda: bt.decompress_many(blobs, uniform=True, device="cuda"),
+        "[routes] single-symbol decode")
+    require(out == singles, "[routes] the single-symbol streams are not bit-exact")
+    prof = device_profile(lambda: bt.decompress_many(blobs, uniform=True, device="cuda"))
+    print(f"[routes] single-symbol decode profiled {card}: "
+          f"{json.dumps({k: v for k, v in prof.items() if k != 'top'})}", flush=True)
+    require(row["host_waits"]["torch_syncs"] == 0 and row["flag_reads"] == 0
+            and row["host_waits"]["event_waits"] == row["warm_runs"] == 4,
+            f"[routes] the single-symbol program waited inside a batch: {row}")
+    keys = sorted(k[1] for k in programs._cache_for(torch.device("cuda")).entries)
+    require(keys == [4, 32], f"[routes] single-symbol batches were not padded: {keys}")
+    _, calls = program_calls(lambda: bt.decompress_many(blobs, uniform=True, device="cuda"))
+    require(replay_equals_eager(calls, "[routes]") == ["decode_single"],
+            "[routes] the streams did not take the single-symbol program")
+    cap = capture_kernel_inputs(
+        lambda: bt.decompress_many(blobs, uniform=True, device="cuda"))[0]
+    hold(decode_cases(cap, "[routes] single"), "[routes] single")
+    print(f"[routes] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def upload_phase(bt, data: bytes, seed: int, golden: dict | None, card: str) -> dict:
+    """The compact upload and its inflate program (bmh_tpu's _upload_batch):
+    the main stream keeps the plain upload (bmh_tpu's rule); 2048 seeded
+    small files (utils/synth.small_files, about 17 MiB) through
+    compress_many(uniform=True) at 128 KiB (64 batches of 32, each compact)
+    and 32 MiB of zero-heavy 4 KiB pages at 1 MiB blocks (RLE1 shrinks
+    them under the 512 KiB bucket: one compact batch).  Each compress and
+    decode from an empty cache and warm (program_run); the inflate's runs
+    and bytes uploaded against the plain upload's; bmh_tpu's SHA-256 for
+    the first 64 files and the first 4 MiB of pages; per-file containers
+    equal compress_bytes of each file; bit-exact; wall and device ms
+    (profiler); a replay equals the eager run; K5 (BMH_PALLAS_SORT=1) at
+    the compact batch's captured shapes and K1-K4 at the pages' decode.
+    Returns the warm calls' launches."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.ops import _build, sort_kernel
+    from bmh_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    counts = {}
+    before = dict(pipeline.UPLOADS)
+    bt.compress_bytes(data, block_size=BLOCK, device="cuda")
+    main = {k: pipeline.UPLOADS[k] - before[k] for k in before}
+    require(main["compact"] == 0 and main["plain"] == 3,
+            f"[upload] the main stream took the compact upload: {main}")
+    print(f"[upload] main stream: {main} (bmh_tpu's rule: plain)", flush=True)
+
+    def uploads(fn):
+        """fn()'s upload counts, a call (program_run calls it twice)."""
+        before = dict(pipeline.UPLOADS)
+        out = fn()
+        return out, {k: (pipeline.UPLOADS[k] - before[k]) // 2 for k in before}
+
+    files = synth.small_files(seed)
+    (blobs, row, counts["upload small files compress"]), up = uploads(lambda: program_run(
+        lambda: bt.compress_many(files, block_size=BLOCK, uniform=True, device="cuda"),
+        "[upload] small files compress"))
+    require(up["compact"] == 64 and up["plain"] == 0,
+            f"[upload] the small files did not take the compact upload: {up}")
+    require(row["host_waits"]["torch_syncs"] == 0
+            and row["host_waits"]["event_waits"] == row["flag_reads"] + 64,
+            f"[upload] a compress batch waited past its loop flags and drain: {row}")
+    sha = hashlib.sha256(b"".join(blobs[:64])).hexdigest()
+    if golden is not None:
+        require(sha == golden["cases"]["small_files_64"]["container_sha256"],
+                "[upload] the first 64 files' containers differ from bmh_tpu's")
+    # device time of one warm compress batch of the 64 (each replays some
+    # 20,000 kernels, and the profiler's trace costs host time for every one)
+    prof_c = device_profile(lambda: bt.compress_many(files[:32], block_size=BLOCK,
+                                                     uniform=True, device="cuda"))
+    t = time.perf_counter()
+    each = [bt.compress_bytes(f, block_size=BLOCK, device="cuda") for f in files]
+    each_ms = (time.perf_counter() - t) * 1e3
+    require(each == blobs, "[upload] a file's container differs from compress_bytes'")
+    outs, _, counts["upload small files decode"] = program_run(
+        lambda: bt.decompress_many(blobs, uniform=True, device="cuda"),
+        "[upload] small files decode")
+    require(outs == files, "[upload] the small files are not bit-exact")
+    total = sum(len(f) for f in files)
+    prof_d = device_profile(lambda: bt.decompress_many(blobs, uniform=True,
+                                                       device="cuda"))
+    print(f"[upload] small files profiled {card}: warm compress of the first 32 "
+          f"files (one batch) {json.dumps({k: v for k, v in prof_c.items() if k != 'top'})}; "
+          f"decode of all {json.dumps({k: v for k, v in prof_d.items() if k != 'top'})}",
+          flush=True)
+    print(f"[upload] small files {card}: {len(files)} files, {total} bytes -> "
+          f"{sum(len(b) for b in blobs)}; uploads a call {up}: inflate runs "
+          f"{up['compact']}, {up['bytes']} bytes sent against {up['plain_bytes']} "
+          f"plain; first 64 sha256 {sha}{' = bmh_tpu' if golden else ''}; "
+          f"compress_bytes of each file: {each_ms:.1f} ms for {len(files)} calls, "
+          f"containers equal; decode bit-exact", flush=True)
+    _, calls = program_calls(lambda: bt.compress_many(files[:32], block_size=BLOCK,
+                                                      uniform=True, device="cuda"))
+    names = replay_equals_eager(calls, "[upload]")
+    require(names[0] == "inflate" and names[1].startswith("compress"),
+            f"[upload] 32 small files did not take the inflate program: {names}")
+    k5_blobs: list = []
+    _build.reset_launches()
+    sorts = capture_sort_inputs(bt, b"", lambda: k5_blobs.extend(bt.compress_many(
+        files[:32], block_size=BLOCK, uniform=True, device="cuda")))
+    counts["upload 32 small files compress K5"] = dict(_build.LAUNCHES)
+    require(k5_blobs == blobs[:32],
+            "[upload] BMH_PALLAS_SORT changed a small file's container")
+    require(counts["upload 32 small files compress K5"]["sort3"] > 0,
+            "[upload] the inflated batch launched no K5 with BMH_PALLAS_SORT=1")
+    k5 = sorts[(32, BLOCK)]
+    k5_bytes, k5_ops = sort_bound(k5[0])
+    hold([dict(name="sort3", source="bmh_tpu_torch/csrc/sort3.cu",
+               replaces="bmh_tpu/ops/pallas_sort.py:149",
+               kernel=lambda: sort_kernel.sort3(*k5),
+               plain=lambda: sort_kernel.sort3_plain(*k5),
+               library=lambda: sort_library(*k5), bytes=k5_bytes, ops=k5_ops,
+               reps=10, shapes=[list(t.shape) for t in k5])], "[upload] inflated")
+
+    pages = synth.zero_pages(seed)
+    part = pages[: 4 << 20]
+    sha = hashlib.sha256(bt.compress_bytes(part, block_size=1 << 20,
+                                           device="cuda")).hexdigest()
+    if golden is not None:
+        require(sha == golden["cases"]["zero_pages_4mib"]["container_sha256"],
+                "[upload] the pages' first 4 MiB differ from bmh_tpu's")
+    (blob, row, counts["upload zero pages compress"]), up = uploads(lambda: program_run(
+        lambda: bt.compress_bytes(pages, block_size=1 << 20, device="cuda"),
+        "[upload] zero pages compress"))
+    require(up["compact"] == 1, f"[upload] the pages did not go compact: {up}")
+    prof_c = device_profile(lambda: bt.compress_bytes(pages, block_size=1 << 20,
+                                                      device="cuda"))
+    out, _, counts["upload zero pages decode"] = program_run(
+        lambda: bt.decompress_bytes(blob, device="cuda"), "[upload] zero pages decode")
+    require(out == pages, "[upload] the zero-heavy pages are not bit-exact")
+    prof_d = device_profile(lambda: bt.decompress_bytes(blob, device="cuda"))
+    print(f"[upload] zero pages profiled {card}: warm compress "
+          f"{json.dumps({k: v for k, v in prof_c.items() if k != 'top'})}; decode "
+          f"{json.dumps({k: v for k, v in prof_d.items() if k != 'top'})}", flush=True)
+    print(f"[upload] zero pages {card}: {len(pages)} -> {len(blob)} bytes; uploads a "
+          f"call {up}: inflate runs {up['compact']}, {up['bytes']} bytes sent against "
+          f"{up['plain_bytes']} plain; first 4 MiB sha256 {sha}"
+          f"{' = bmh_tpu' if golden else ''}; decode bit-exact", flush=True)
+    cap = capture_kernel_inputs(lambda: bt.decompress_bytes(blob, device="cuda"))[0]
+    hold(decode_cases(cap, "[upload] zero pages"), "[upload] zero pages")
+    print(f"[upload] {card}: phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
 
 
@@ -1600,6 +1966,12 @@ def main() -> None:
     require(all(C.unpack_block(r)[4] is None for r in raws)
             and pipeline._looks_pathological(np.frombuffer(periodic[:BLOCK], np.uint8)),
             "the motif stream did not take the pathological and periodic routes")
+    clock.lap("routes")
+    route_counts = routes_programs(bt, args.seed, golden if check_golden else None, card)
+    clock.lap("routes, programs")
+    route_counts.update(upload_phase(bt, data, args.seed,
+                                     golden if check_golden else None, card))
+    clock.lap("upload")
 
     # 6. hostile: a lying rle_len must fail closed on the card, on the flat
     #    and on the periodic route
@@ -1621,7 +1993,7 @@ def main() -> None:
 
     # 7-9. the dispatch layer: the in-flight window, the block sizes the main
     #      phases do not reach, two processes on the card
-    clock.lap("routes, hostile")
+    clock.lap("hostile")
     inflight_phase(bt, data, golden if check_golden else None, card)
     clock.lap("inflight")
     graph_counts = graphs_phase(bt, data, golden if check_golden else None, card)
@@ -1637,6 +2009,7 @@ def main() -> None:
     #        main path's in the kernels line
     paths = cli_phase(data, golden if check_golden else None, card)
     paths.update(graph_counts)
+    paths.update(route_counts)
     clock.lap("cli")
     paths["stream decode"] = stream_phase(bt, data, card)
     paths["oracle container decode"] = oracle_phase(bt, data, card)

@@ -184,8 +184,9 @@ def test_decode_chunk_bits_65536_matches_bmh_tpu(monkeypatch):
 def test_smoke_input_sizes_keep_the_golden_stream():
     """utils/synth.smoke_input's size keywords: the defaults give the 9 MiB
     stream whose containers tests/data/torch_golden.json records (and the
-    first 2 MiB its 2 MiB cases'); other sizes give text of exactly that
-    many bytes (letters, spaces, newlines), then the random bytes."""
+    first 2 MiB its 2 MiB cases'; the other cases' inputs are their own
+    generators' heads); other sizes give text of exactly that many bytes
+    (letters, spaces, newlines), then the random bytes."""
     import hashlib
     import json
     from pathlib import Path
@@ -197,7 +198,15 @@ def test_smoke_input_sizes_keep_the_golden_stream():
     assert len(data) == golden["input_bytes"] == synth.TEXT_BYTES + synth.RANDOM_BYTES
     assert hashlib.sha256(data).hexdigest() == golden["input_sha256"]
     for case in golden["cases"].values():
-        head = data[: case["input_bytes"]]
+        source = case["source"]
+        if source == "smoke_input":
+            head = data[: case["input_bytes"]]
+        elif source == "small_files":  # the first files, back to back
+            files = synth.small_files(golden["seed"])
+            head = b"".join(files)[: case["input_bytes"]]
+            assert sum(len(f) for f in files[:64]) == case["input_bytes"]
+        else:
+            head = getattr(synth, source)(golden["seed"])[: case["input_bytes"]]
         assert hashlib.sha256(head).hexdigest() == case["input_sha256"]
     small = synth.smoke_input(golden["seed"], text_bytes=5000, random_bytes=300)
     assert len(small) == 5300

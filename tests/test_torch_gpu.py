@@ -401,9 +401,11 @@ def test_oracle_containers_equal_the_cards(cuda):
 def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
     """make_roundtrip_step on a one-process NCCL group: every row decodes,
     the bits are the tables' lengths over the histograms, and K1-K4 launch
-    (256-bit chunks, MTF chunk 128)."""
+    (256-bit chunks, MTF chunk 128); a second call replays the captured
+    step, collectives included, and gives the same outputs."""
     import torch.distributed as dist
 
+    from bmh_tpu_torch.models import programs
     from bmh_tpu_torch.parallel import dataparallel as tdp
     from bmh_tpu_torch.parallel import mesh as tmesh
 
@@ -419,10 +421,16 @@ def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
         freqs = tdp.make_sharded_stage1(mesh, nmax)(batch, ns)[2].cpu().numpy()
         tbl = tdp.host_tables(freqs)
         _build.reset_launches()
-        out, total_ok, bits = tdp.make_roundtrip_step(mesh, nmax)(
-            batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        step = tdp.make_roundtrip_step(mesh, nmax)
+        args = (batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        out, total_ok, bits = step(*args)
         torch.cuda.synchronize()
+        programs.reset_stats()
+        again = step(*args)
+        assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(again, (out, total_ok, bits)))
     finally:
+        programs.clear()  # the captured collectives go before their group
         dist.destroy_process_group()
     assert all(_build.LAUNCHES[k] > 0 for k in ("gap_decode_phase_a", "gap_decode_phase_b",
                                                 "imtf_chunks", "ibwt_walk"))
@@ -577,3 +585,37 @@ def test_lf2_is_in_the_decode_key(cuda, monkeypatch):
     monkeypatch.setattr(config.DEFAULT, "lf2", False)
     assert bt.decompress_bytes(blob, device=cuda) == data
     assert programs.STATS["captures"] == 1
+
+
+def test_upload_and_route_programs_replay_without_host_reads(cuda):
+    """The inflate program feeding a compress program (32 small files in
+    128 KiB rows), the periodic program (four 64 KiB blocks of one record)
+    and the single-symbol program (five streams padded to eight rows):
+    containers equal the CPU run's, and a second call of each replays
+    under sync debug mode "error" without a capture; the decodes read no
+    loop flag."""
+    from bmh_tpu_torch.models import pipeline, programs
+
+    files = synth.small_files(5, count=32)
+    rec = synth.record_stream(5, total=4 * 65536)
+    singles = [b"\x00" * 3] * 5
+    want = bt.compress_many(files, block_size=131072, uniform=True, device="cpu")
+    blob_r = bt.compress_bytes(rec, block_size=65536, device="cpu")
+    blobs_s = bt.compress_many(singles, block_size=2048, device="cpu")
+    programs.clear()
+    before = pipeline.UPLOADS["compact"]
+    assert bt.compress_many(files, block_size=131072, uniform=True, device=cuda) == want
+    assert pipeline.UPLOADS["compact"] == before + 1
+    assert bt.decompress_bytes(blob_r, device=cuda) == rec
+    assert bt.decompress_many(blobs_s, uniform=True, device=cuda) == singles
+    programs.reset_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert bt.decompress_bytes(blob_r, device=cuda) == rec
+        assert bt.decompress_many(blobs_s, uniform=True, device=cuda) == singles
+        assert programs.STATS["flag_reads"] == 0
+        assert bt.compress_many(files, block_size=131072, uniform=True,
+                                device=cuda) == want
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 4

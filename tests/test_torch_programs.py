@@ -8,8 +8,12 @@ runs, against bmh_tpu on the CPU.
 (c) sparse_ranks with the handoff's tie total and the resume choice on the
     device writes bmh_tpu's containers at three BMH_SPARSE_CAP_DIVs;
 (d) the bucketed staging and the static row compaction decode bmh_tpu's
-    containers, ragged rows and a padded batch included.
-Both programs also run under a torch-function mode that fails on any read
+    containers, ragged rows and a padded batch included;
+(e) the periodic and single-symbol programs decode bmh_tpu's containers,
+    padded as on a card, and the padding changes no real row;
+(f) the sharded stage and step of one maker hit their keys on a second
+    call, on a one-process gloo group.
+The programs also run under a torch-function mode that fails on any read
 of a tensor's value by the host other than a while_loop's predicate, so
 nothing in them would wait for a card.  Integers compare exactly."""
 
@@ -281,3 +285,125 @@ def test_bucketed_staging_and_compaction_decode_bmh_tpu_blocks(lengths):
             assert bytes(flat[off:off + r.size].numpy()) == r.tobytes()
             assert t == r.size
         off += r.size
+
+
+def test_upload_length_and_mesh_change_the_key():
+    """The compact stream's length keys only the inflate program; a sharded
+    program's maker token, group size and rank key it."""
+    k = programs.key("inflate", b_pad=4, nmax=BLOCK, s=1 << 19)
+    assert programs.key("inflate", b_pad=4, nmax=BLOCK, s=1 << 20) != k
+    assert programs.key("inflate", b_pad=4, nmax=BLOCK, s=1 << 19) == k
+    m = programs.key("roundtrip_step", b_pad=4, nmax=BLOCK, mesh=(0, 1, 0))
+    assert programs.key("roundtrip_step", b_pad=4, nmax=BLOCK, mesh=(1, 1, 0)) != m
+
+
+# --- (e) the periodic and single-symbol programs ---------------------------
+
+PBLOCK = 2 * BLOCK  # a periodic block longer than the 4096 stride
+
+
+@pytest.fixture(scope="module")
+def route_containers():
+    """bmh_tpu's containers of three periodic 8 KiB blocks (a 64-byte
+    motif, so every block is a power of it) and of three single-symbol
+    streams (b"\\x00" * 3, b"q", b"\\x00" * 2: one RLE0 symbol each)."""
+    rng = np.random.default_rng(13)
+    motif = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    periodic = motif * (3 * PBLOCK // 64)
+    singles = [b"\x00" * 3, b"q", b"\x00" * 2]
+    return {"periodic": (periodic, bmh_tpu.compress_bytes(periodic, block_size=PBLOCK)),
+            "single": (singles, [bmh_tpu.compress_bytes(s, block_size=2048)
+                                 for s in singles])}
+
+
+def test_periodic_program_decodes_bmh_tpu_blocks(route_containers):
+    """The periodic route, padded to four rows as on a card, reads nothing
+    on the host (no loop flags either) and gives back every block; the
+    backend takes it through its key."""
+    data, blob = route_containers["periodic"]
+    infos = bt.api._parse(blob)[0]
+    assert all(b["cps"] is None and b["orig_len"] > 4096 for b in infos)
+    idxs = list(range(len(infos)))
+    (words, lens_all, ss, ssi, sid, ms, ns, shifts,
+     maxl) = tpipe._stage_flat_np(infos, idxs, 512)
+    b_pad = shifts.size
+    ncopy = np.zeros(b_pad, np.int64)
+    ncopy[:3] = ns[:3]
+    args = [torch.from_numpy(x) for x in (words.view(np.int32), lens_all, ss, ssi,
+                                           sid, ms, ns, shifts, ncopy)]
+    flat, flags = _no_host_reads(tpipe.decode_periodic_program, *args, PBLOCK, 512,
+                                 maxl)
+    assert flags == 0 and b_pad == 4
+    assert bytes(flat[: len(data)].numpy()) == data
+    totals = flat[len(data): len(data) + 24].numpy().view("<i8")
+    assert list(totals) == [PBLOCK] * 3
+    programs.clear()
+    assert bt.decompress_bytes(blob, device="cpu") == data
+    assert [k[0] for k in programs._cpu_keys] == ["decode_periodic"]
+
+
+def test_single_program_pads_without_touching_real_rows(route_containers):
+    """Three single-symbol blocks padded to four rows by bmh_tpu's dummy
+    row read nothing on the host, and their rows and totals equal the
+    unpadded batch's; decompress_many(uniform=True) decodes bmh_tpu's
+    containers through the program."""
+    singles, blobs = route_containers["single"]
+    infos = [bt.api._parse(b)[0][0] for b in blobs]
+    assert all(np.asarray(b["present"]).sum() == 1 for b in infos)
+    idxs = [0, 1, 2]
+    padded = tpipe._stage_single_np(infos, idxs, pad=True)
+    alone = tpipe._stage_single_np(infos, idxs, pad=False)
+    assert padded[3].size == 4 and list(padded[3][3:]) == [1]
+    assert list(padded[1][3:]) == [1] and list(padded[2][3:]) == [0]
+    out, flags = _no_host_reads(tpipe.decode_single_program,
+                                *(torch.from_numpy(x) for x in padded), 2048)
+    ref = tpipe.decode_single_program(*(torch.from_numpy(x) for x in alone), 2048)
+    n = sum(len(s) for s in singles)
+    assert flags == 0
+    assert torch.equal(out[: n + 24], ref[: n + 24])
+    assert bytes(out[:n].numpy()) == b"".join(singles)
+    assert list(out[n: n + 24].numpy().view("<i8")) == [3, 1, 2]
+    programs.clear()
+    assert bt.decompress_many(blobs, uniform=True, device="cpu") == singles
+    assert [k[0] for k in programs._cpu_keys] == ["decode_single"]
+
+
+# --- (f) the sharded programs ------------------------------------------------
+
+def test_sharded_programs_hit_the_cache_on_a_second_call(tmp_path):
+    """On a one-process gloo group the step and stage 1 of one maker run
+    through one key each: the second call hits it; a new maker misses."""
+    import torch.distributed as dist
+
+    from bmh_tpu_torch.parallel import dataparallel as tdp
+    from bmh_tpu_torch.parallel import mesh as tmesh
+
+    rng = np.random.default_rng(2)
+    batch = rng.integers(0, 256, (2, 512)).astype(np.uint8)
+    ns = np.array([512, 400])
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh(device="cpu")
+        stage1 = tdp.make_sharded_stage1(mesh, 512)
+        programs.clear()
+        programs.reset_stats()
+        freqs = stage1(batch, ns)[2].numpy()
+        assert torch.equal(stage1(batch, ns)[2], torch.from_numpy(freqs))
+        assert programs.STATS["runs"] == 2 and programs.STATS["hits"] == 1
+        tbl = tdp.host_tables(freqs)
+        args = (batch, ns, *(tbl[k] for k in ("enc_len", "enc_code", "count", "sym")))
+        step = tdp.make_roundtrip_step(mesh, 512)
+        first = step(*args)
+        assert int(first[1]) == int(ns.sum())
+        second = step(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert programs.STATS["runs"] == 4 and programs.STATS["hits"] == 2
+        tdp.make_roundtrip_step(mesh, 512)(*args)
+        assert programs.STATS["runs"] == 5 and programs.STATS["hits"] == 2
+        keys = list(programs._cpu_keys)
+        assert [k[0] for k in keys] == ["sharded_stage1", "roundtrip_step",
+                                        "roundtrip_step"]
+        assert keys[1][8][1:] == (1, 0) and keys[1][8] != keys[2][8]
+    finally:
+        dist.destroy_process_group()
