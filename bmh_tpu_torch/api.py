@@ -18,6 +18,7 @@ import torch
 
 from .utils import container, nativeio
 from .utils.config import DEFAULT as CONFIG
+from .utils.tracing import annotate
 
 DEFAULT_BLOCK_SIZE = CONFIG.block_size
 MAX_BLOCK_SIZE = 1 << 21  # CodecConfig.validate's bound (code lengths <= 31)
@@ -139,26 +140,32 @@ def compress_many(datas: list, block_size: int = DEFAULT_BLOCK_SIZE,
     """Compress several independent streams in one batched backend call;
     uniform=True pads every block of the torch backend to the block_size
     bucket."""
-    _validate_block_size(block_size)
-    be = get_backend(backend, device)
-    stride = CONFIG.cursor_stride
-    arrs = [_as_array(d) for d in datas]
-    flat_blocks: list[np.ndarray] = []
-    flat_raw: list[int] = []
-    spans = []
-    for arr in arrs:
-        blocks, raw_lens = _rle1_blocks(container.split_blocks(arr, block_size))
-        spans.append((len(flat_blocks), len(blocks)))
-        flat_blocks.extend(blocks)
-        flat_raw.extend(raw_lens)
-    if uniform and be.name == "torch":
-        from .models.pipeline import _bucket
+    with annotate("api.compress", "api"):
+        _validate_block_size(block_size)
+        be = get_backend(backend, device)
+        stride = CONFIG.cursor_stride
+        arrs = [_as_array(d) for d in datas]
+        with annotate("api.split", "api"):
+            split = [container.split_blocks(arr, block_size) for arr in arrs]
+        flat_blocks: list[np.ndarray] = []
+        flat_raw: list[int] = []
+        spans = []
+        with annotate("api.rle1", "api"):
+            for raw_blocks in split:
+                blocks, raw_lens = _rle1_blocks(raw_blocks)
+                spans.append((len(flat_blocks), len(blocks)))
+                flat_blocks.extend(blocks)
+                flat_raw.extend(raw_lens)
+        if uniform and be.name == "torch":
+            from .models.pipeline import _bucket
 
-        results = be.compress_blocks(flat_blocks, stride, bucket=_bucket(block_size))
-    else:
-        results = be.compress_blocks(flat_blocks, stride)
-    return [_pack(results[s:s + c], flat_raw[s:s + c], block_size, arr.size, stride)
-            for arr, (s, c) in zip(arrs, spans)]
+            results = be.compress_blocks(flat_blocks, stride, bucket=_bucket(block_size))
+        else:
+            results = be.compress_blocks(flat_blocks, stride)
+        with annotate("api.pack", "api"):
+            return [_pack(results[s:s + c], flat_raw[s:s + c], block_size, arr.size,
+                          stride)
+                    for arr, (s, c) in zip(arrs, spans)]
 
 
 def _validate_block_info(orig_len: int, pre_len: int, rle_len: int,
@@ -216,17 +223,23 @@ def _validate_block_info(orig_len: int, pre_len: int, rle_len: int,
                          "symbols can occupy")
 
 
-def _parse(buf: bytes):
-    """Container -> (block infos, raw lengths, total size), validated."""
+def _unpack(buf: bytes) -> tuple:
+    """Container -> (block_size, total size, cursor stride, each block's
+    fields as container.unpack_block gives them), read but not checked."""
     block_size, total, raw_blocks = container.unpack_file(buf)
+    stride = container.file_stride(buf)
+    return block_size, total, stride, [container.unpack_block(raw) for raw in raw_blocks]
+
+
+def _validate(unpacked: tuple):
+    """_unpack's result, validated -> (block infos, raw lengths, total
+    size, block_size)."""
+    block_size, total, stride, blocks = unpacked
     # the decode side applies the codec envelope too: a hostile header
     # claiming a multi-GB block_size must not reach device allocation
     _validate_block_size(block_size)
-    stride = container.file_stride(buf)
     infos, raw_lens = [], []
-    for raw in raw_blocks:
-        (orig_len, shift, lens, present, cps, rle_len, payload,
-         pre_len) = container.unpack_block(raw)
+    for orig_len, shift, lens, present, cps, rle_len, payload, pre_len in blocks:
         _validate_block_info(orig_len, pre_len, rle_len, cps, lens, present,
                              payload, block_size, stride, shift)
         raw_lens.append(orig_len)
@@ -236,6 +249,12 @@ def _parse(buf: bytes):
     return infos, raw_lens, total, block_size
 
 
+def _parse(buf: bytes):
+    """Container -> (block infos, raw lengths, total size, block_size),
+    validated."""
+    return _validate(_unpack(buf))
+
+
 def decompress_bytes(buf: bytes, backend: str = "torch", device="cuda") -> bytes:
     return decompress_many([buf], backend, device=device)[0]
 
@@ -243,34 +262,39 @@ def decompress_bytes(buf: bytes, backend: str = "torch", device="cuda") -> bytes
 def decompress_many(bufs: list[bytes], backend: str = "torch",
                     uniform: bool = False, device="cuda") -> list[bytes]:
     """Decompress several .bzt containers in one batched backend call."""
-    be = get_backend(backend, device)
-    infos: list[dict] = []
-    raw_lens: list[int] = []
-    spans = []
-    max_block = 0
-    for buf in bufs:
-        inf, rl, total, bs = _parse(buf)
-        max_block = max(max_block, bs)
-        spans.append((len(infos), len(inf), total))
-        infos.extend(inf)
-        raw_lens.extend(rl)
-    if not infos:
-        parts = []
-    elif uniform and be.name == "torch":
-        from .models.pipeline import _bucket
+    with annotate("api.decompress", "api"):
+        be = get_backend(backend, device)
+        with annotate("api.parse", "api"):
+            unpacked = [_unpack(buf) for buf in bufs]
+        infos: list[dict] = []
+        raw_lens: list[int] = []
+        spans = []
+        max_block = 0
+        with annotate("api.validate", "api"):
+            for u in unpacked:
+                inf, rl, total, bs = _validate(u)
+                max_block = max(max_block, bs)
+                spans.append((len(infos), len(inf), total))
+                infos.extend(inf)
+                raw_lens.extend(rl)
+        if not infos:
+            parts = []
+        elif uniform and be.name == "torch":
+            from .models.pipeline import _bucket
 
-        parts = be.decompress_blocks(infos, bucket=_bucket(max_block))
-    else:
-        parts = be.decompress_blocks(infos)
-    out = []
-    for start, cnt, total in spans:
-        data = b"".join(_rle1_restore(p, rl).tobytes()
-                        for p, rl in zip(parts[start:start + cnt],
-                                         raw_lens[start:start + cnt]))
-        if len(data) != total:
-            raise ValueError(f"decoded {len(data)} bytes, expected {total}")
-        out.append(data)
-    return out
+            parts = be.decompress_blocks(infos, bucket=_bucket(max_block))
+        else:
+            parts = be.decompress_blocks(infos)
+        with annotate("api.restore", "api"):
+            restored = [_rle1_restore(p, rl) for p, rl in zip(parts, raw_lens)]
+        with annotate("api.join", "api"):
+            out = []
+            for start, cnt, total in spans:
+                data = b"".join(r.tobytes() for r in restored[start:start + cnt])
+                if len(data) != total:
+                    raise ValueError(f"decoded {len(data)} bytes, expected {total}")
+                out.append(data)
+            return out
 
 
 def compress_file(in_path: str, out_path: str, block_size: int = DEFAULT_BLOCK_SIZE,

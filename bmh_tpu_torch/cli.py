@@ -10,7 +10,8 @@ Every codec verb takes --backend torch|oracle (default torch) and --device
 (default cuda: the hand-written kernels; cpu runs their plain versions; the
 oracle takes no device).  `bench` round-trips the Calgary corpus (found
 through --corpus or BMH_CORPUS_DIR) with a bit-exact check and `$$`
-metrics per file, then one JSON line.
+metrics per file, then the span recorder's self time by span name
+(utils/tracing.recording) and one JSON line.
 """
 
 from __future__ import annotations
@@ -23,10 +24,9 @@ import time
 import numpy as np
 
 from . import api
-from .utils import container, nativeio
+from .utils import container, nativeio, tracing
 from .utils import corpus as corpus_mod
 from .utils.metrics import json_line, metrics_line, timer
-from .utils.tracing import StageTimer
 
 
 def cmd_compress(args) -> int:
@@ -66,31 +66,29 @@ def cmd_bench(args) -> int:
     total_in = total_out = 0
     t_start = time.perf_counter()
     failures = 0
-    stages = StageTimer()
-    for i, name in enumerate(files, 1):
-        with open(os.path.join(d, name), "rb") as f:
-            data = f.read()
-        t0 = time.perf_counter()
-        with stages.stage("compress"):
+    with tracing.recording() as spans:
+        for i, name in enumerate(files, 1):
+            with open(os.path.join(d, name), "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
             blob = api.compress_bytes(data, block_size=args.block_size,
                                       backend=args.backend, device=args.device)
-        t1 = time.perf_counter()
-        with stages.stage("decompress"):
+            t1 = time.perf_counter()
             back = api.decompress_bytes(blob, backend=args.backend, device=args.device)
-        t2 = time.perf_counter()
-        ok = back == data
-        failures += 0 if ok else 1
-        total_in += len(data)
-        total_out += len(blob)
-        print(f"{i}/{len(files)} "
-              + metrics_line(name, len(data), len(blob),
-                             header_size=container.header_bytes(blob), seconds=t1 - t0)
-              + f" $$ decode_s: {t2 - t1:.3f} $$ " + ("success" if ok else "fail"))
+            t2 = time.perf_counter()
+            ok = back == data
+            failures += 0 if ok else 1
+            total_in += len(data)
+            total_out += len(blob)
+            print(f"{i}/{len(files)} "
+                  + metrics_line(name, len(data), len(blob),
+                                 header_size=container.header_bytes(blob), seconds=t1 - t0)
+                  + f" $$ decode_s: {t2 - t1:.3f} $$ " + ("success" if ok else "fail"))
     wall = time.perf_counter() - t_start
     rate = total_out / total_in if total_in else 0.0
     print(f"TOTAL $$ in: {total_in} $$ out: {total_out} $$ rate: {rate:.4f} "
           f"$$ wall_s: {wall:.2f} $$ roundtrip_MB_per_s: {2 * total_in / wall / 1e6:.3f}")
-    print(stages.report())
+    print(spans.report())
     print(json_line(files=len(files), bytes_in=total_in, bytes_out=total_out,
                     rate=round(rate, 4), wall_s=round(wall, 3),
                     failures=failures))

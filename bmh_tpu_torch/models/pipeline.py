@@ -45,6 +45,13 @@ compress dispatch of b_pad blocks splits its rows over `_ndev_for(b_pad)`
 of the backend's devices, as bmh_tpu's shard_map splits the block axis;
 decompress dispatches go round-robin over them.  `LAST_DISPATCH` records
 the last fan-out of each direction.
+
+Spans (utils/tracing.annotate, layer "pipeline"), per batch, never per
+block: `pipeline.group` (grouping; the pathology test on compress), one
+dispatch span a batch (`compress_dispatch_b*`, `decompress_dispatch_b*`,
+`decompress_single_b*`) holding `pipeline.stage` (host staging and the
+upload's arrays) and models/programs.py's `programs.run`, then
+`compress_assemble` or `pipeline.drain` around each drain.
 """
 
 from __future__ import annotations
@@ -335,10 +342,11 @@ def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
     and start the ONE copy of [per-block meta | compacted payload words] to
     the host.  Returns (the copy, (rows, meta columns))."""
     rows = b_pad if device.type == "cuda" else len(idxs)
-    ns = np.ones(rows, dtype=np.int64)  # dummy rows compress n = 1
-    for row, i in enumerate(idxs):
-        ns[row] = arrs[i].size
-    data = _upload_batch(arrs, idxs, ns, nmax, rows)
+    with annotate("pipeline.stage"):
+        ns = np.ones(rows, dtype=np.int64)  # dummy rows compress n = 1
+        for row, i in enumerate(idxs):
+            ns[row] = arrs[i].size
+        data = _upload_batch(arrs, idxs, ns, nmax, rows)
     k = programs.key("compress_full" if hard else "compress_sparse",
                      b_pad=rows, nmax=nmax, stride=stride)
     fn = functools.partial(compress_program, stride=stride, hard=hard, b_pad=b_pad)
@@ -530,27 +538,29 @@ def _decompress_dispatch(blocks, idxs, nmax: int, stride: int | None, device):
     totals] to the host.  Nothing here waits for the card.  Returns (the
     copy, the block lengths)."""
     chunk_bits = config_mod.DEFAULT.decode_chunk_bits
-    staged = _stage_flat_np(blocks, idxs, chunk_bits, device.type == "cuda")
-    words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts, maxl = staged
-    b, b_pad = len(idxs), shifts.size
-    ncopy = np.zeros(b_pad, dtype=np.int64)
-    ncopy[:b] = ns[:b]
-    n_out = int(ncopy.sum()) + 8 * b
-    arrays = (words.view(np.int32), lens_all, seg_start, seg_start_idx, seg_id,
-              ms, ns, shifts)
+    with annotate("pipeline.stage"):
+        staged = _stage_flat_np(blocks, idxs, chunk_bits, device.type == "cuda")
+        words, lens_all, seg_start, seg_start_idx, seg_id, ms, ns, shifts, maxl = staged
+        b, b_pad = len(idxs), shifts.size
+        ncopy = np.zeros(b_pad, dtype=np.int64)
+        ncopy[:b] = ns[:b]
+        n_out = int(ncopy.sum()) + 8 * b
+        arrays = (words.view(np.int32), lens_all, seg_start, seg_start_idx, seg_id,
+                  ms, ns, shifts)
+        if stride is not None:
+            kcp = max(max(nmax // stride, 1) - 1, 1)
+            cps = np.zeros((b_pad, kcp), dtype=np.int64)
+            for row, i in enumerate(idxs):
+                bc = blocks[i].get("cps")
+                if bc is not None and len(bc) > 0:
+                    cc = np.asarray(bc, dtype=np.int64)[:kcp]
+                    cps[row, : cc.size] = cc
     if stride is None:
         k = programs.key("decode_periodic", b_pad=b_pad, nmax=nmax, nc=seg_id.size,
                          chunk_bits=chunk_bits, maxl=maxl)
         fn = functools.partial(decode_periodic_program, nmax=nmax,
                                chunk_bits=chunk_bits, maxl=maxl)
         return programs.run(device, k, fn, (*arrays, ncopy), n_out), ns[:b]
-    kcp = max(max(nmax // stride, 1) - 1, 1)
-    cps = np.zeros((b_pad, kcp), dtype=np.int64)
-    for row, i in enumerate(idxs):
-        bc = blocks[i].get("cps")
-        if bc is not None and len(bc) > 0:
-            cc = np.asarray(bc, dtype=np.int64)[:kcp]
-            cps[row, : cc.size] = cc
     k = programs.key("decode_flat", b_pad=b_pad, nmax=nmax, nc=seg_id.size,
                      chunk_bits=chunk_bits, maxl=maxl, stride=stride)
     fn = functools.partial(decode_flat_program, nmax=nmax, chunk_bits=chunk_bits,
@@ -562,17 +572,18 @@ def _decompress_drain(part, idxs, results) -> None:
     """Wait for a decompress dispatch's copy and slice its blocks into
     `results`; raises ValueError on a block whose decoded total is not its
     length."""
-    copy, ns = part
-    flat_np = copy.wait()
-    total = int(ns.sum())
-    totals = flat_np[total:].view("<i8")
-    offs = np.cumsum(ns) - ns
-    for row, i in enumerate(idxs):
-        if int(totals[row]) != int(ns[row]):
-            raise ValueError(
-                f"corrupt container: block {i}'s RLE0 stream decodes to "
-                f"{int(totals[row])} bytes, expected {int(ns[row])}")
-        results[i] = flat_np[offs[row]: offs[row] + ns[row]]
+    with annotate("pipeline.drain"):
+        copy, ns = part
+        flat_np = copy.wait()
+        total = int(ns.sum())
+        totals = flat_np[total:].view("<i8")
+        offs = np.cumsum(ns) - ns
+        for row, i in enumerate(idxs):
+            if int(totals[row]) != int(ns[row]):
+                raise ValueError(
+                    f"corrupt container: block {i}'s RLE0 stream decodes to "
+                    f"{int(totals[row])} bytes, expected {int(ns[row])}")
+            results[i] = flat_np[offs[row]: offs[row] + ns[row]]
 
 
 def _stage_single_np(blocks: list[dict], idxs: list[int], pad: bool = True):
@@ -615,7 +626,8 @@ def _decompress_single(blocks, idxs, nmax: int, device):
     [bytes | decoded totals] to the host.  api._validate_block_info has
     checked that each stream decodes to its block length.  Returns
     _decompress_dispatch's pair."""
-    staged = _stage_single_np(blocks, idxs, device.type == "cuda")
+    with annotate("pipeline.stage"):
+        staged = _stage_single_np(blocks, idxs, device.type == "cuda")
     ns = staged[3]
     b = len(idxs)
     k = programs.key("decode_single", b_pad=ns.size, nmax=nmax)
@@ -701,10 +713,11 @@ class TorchBackend:
         the full-rounds program for every batch (the same bytes)."""
         results: list[dict | None] = [None] * len(blocks)
         groups: dict[tuple[int, bool], list[int]] = defaultdict(list)
-        arrs = [np.asarray(b, dtype=np.uint8) for b in blocks]
-        for i, blk in enumerate(arrs):
-            nmax = max(bucket, _bucket(blk.size)) if bucket else _bucket(blk.size)
-            groups[(nmax, _looks_pathological(blk))].append(i)
+        with annotate("pipeline.group"):
+            arrs = [np.asarray(b, dtype=np.uint8) for b in blocks]
+            for i, blk in enumerate(arrs):
+                nmax = max(bucket, _bucket(blk.size)) if bucket else _bucket(blk.size)
+                groups[(nmax, _looks_pathological(blk))].append(i)
 
         def batches():
             for (nmax, hard), all_idxs in groups.items():
@@ -747,22 +760,23 @@ class TorchBackend:
         fgroups: dict[tuple[int, int], list[int]] = defaultdict(list)
         pgroups: dict[int, list[int]] = defaultdict(list)
         sgroups: dict[int, list[int]] = defaultdict(list)
-        for i, b in enumerate(blocks):
-            n = int(b["orig_len"])
-            stride = int(b["stride"])
-            nmax = max(bucket, _bucket(n)) if bucket else _bucket(n)
-            if n == 0:
-                results[i] = np.zeros(0, dtype=np.uint8)
-            elif int(np.asarray(b["present"]).sum()) == 1:
-                sgroups[nmax].append(i)
-            elif b.get("cps") is None and n > stride:
-                pgroups[nmax].append(i)
-            else:
-                fgroups[(nmax, stride)].append(i)
-        jobs = [(idxs, nmax, stride) for (nmax, stride), all_idxs in fgroups.items()
-                for idxs in _chunks(all_idxs)]
-        jobs += [(idxs, nmax, None) for nmax, all_idxs in pgroups.items()
-                 for idxs in _chunks(all_idxs)]
+        with annotate("pipeline.group"):
+            for i, b in enumerate(blocks):
+                n = int(b["orig_len"])
+                stride = int(b["stride"])
+                nmax = max(bucket, _bucket(n)) if bucket else _bucket(n)
+                if n == 0:
+                    results[i] = np.zeros(0, dtype=np.uint8)
+                elif int(np.asarray(b["present"]).sum()) == 1:
+                    sgroups[nmax].append(i)
+                elif b.get("cps") is None and n > stride:
+                    pgroups[nmax].append(i)
+                else:
+                    fgroups[(nmax, stride)].append(i)
+            jobs = [(idxs, nmax, stride) for (nmax, stride), all_idxs in fgroups.items()
+                    for idxs in _chunks(all_idxs)]
+            jobs += [(idxs, nmax, None) for nmax, all_idxs in pgroups.items()
+                     for idxs in _chunks(all_idxs)]
         devs = self.devices
         # successive dispatches round-robin over the devices by a
         # monotonic count, as in bmh_tpu; the window keeps at least one

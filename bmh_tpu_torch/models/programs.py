@@ -42,6 +42,12 @@ key and counts: the CPU has no graphs, so this is no fallback.
 
 LAUNCHES (ops/_build.py) stays true: a capture records the launches of
 each graph instead of counting them, and each replay adds them.
+
+Spans (utils/tracing.annotate, layer "programs"): `programs.run` around a
+run (input load, replay launch, the output copy's start), with a child
+`programs.capture` where its key is new (warm-up and capture);
+`programs.flag` around each loop-flag read; `programs.wait` around
+HostCopy.wait.  The last two are the host's waits for the card.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch
 
 from ..ops import _build, control
 from ..utils import config as config_mod
+from ..utils.tracing import annotate
 
 MAX_ENTRIES = 128
 # every knob a program reads, in its key (bmh_tpu's keys: shapes plus
@@ -65,9 +72,9 @@ KNOBS = ("mtf_chunk", "imtf_chunk", "full_rounds", "sparse_cap_div",
 
 # counts since the process started (or reset_stats): programs run, cache
 # hits, warm-ups, captures and their seconds, graphs captured, graph
-# replays (a loop body's every round counted), flag reads, evictions
+# replays (a loop body's every round counted), flag reads
 STATS = {"runs": 0, "hits": 0, "warmups": 0, "captures": 0, "capture_s": 0.0,
-         "graphs": 0, "replays": 0, "flag_reads": 0, "evicted": 0}
+         "graphs": 0, "replays": 0, "flag_reads": 0}
 _stats_lock = threading.Lock()
 _caches: dict = {}  # device -> _DeviceCache
 _cpu_keys: OrderedDict = OrderedDict()  # the CPU's keys: counts only
@@ -124,9 +131,10 @@ class HostCopy:
         self.event.record()
 
     def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        with annotate("programs.wait", "programs"):
+            if self.event is not None:
+                self.event.synchronize()
+            return self.host.numpy()
 
 
 class _Capture:
@@ -258,9 +266,10 @@ class _Program:
                     if rounds == trips[len(ran)]:
                         break
                 else:
-                    host.copy_(flag, non_blocking=True)
-                    ev.record()
-                    ev.synchronize()
+                    with annotate("programs.flag", "programs"):
+                        host.copy_(flag, non_blocking=True)
+                        ev.record()
+                        ev.synchronize()
                     reads += 1
                     if not host[0]:
                         break
@@ -325,7 +334,6 @@ def _cpu_call(k: tuple, fn, inputs):
         _cpu_keys.move_to_end(k)
         while len(_cpu_keys) > MAX_ENTRIES:
             _cpu_keys.popitem(last=False)
-            STATS["evicted"] += 1
     _count(hits=int(hit))
     return fn(*args)
 
@@ -344,14 +352,14 @@ def _replayed(c: _DeviceCache, k: tuple, fn, inputs) -> _Program:
         _count(hits=1)
         prog.load(inputs)
     else:
-        prog = _Program(c, fn, inputs)
-        prog.load(inputs)
-        prog.warm_up()
-        prog.capture()
+        with annotate("programs.capture", "programs"):
+            prog = _Program(c, fn, inputs)
+            prog.load(inputs)
+            prog.warm_up()
+            prog.capture()
         c.entries[k] = prog
         while len(c.entries) > MAX_ENTRIES:
             c.entries.popitem(last=False)
-            _count(evicted=1)
     prog.replay()
     return prog
 
@@ -362,17 +370,18 @@ def run(device, k: tuple, fn, inputs, out_len: int | None = None) -> HostCopy:
     the first `out_len` elements of its output (all with None) to the
     host."""
     device = torch.device(device)
-    if device.type != "cuda":
-        out = _cpu_call(k, fn, inputs)
-        return HostCopy(out if out_len is None else out[:out_len])
-    c = _cache_for(device)
-    with torch.cuda.device(c.device), c.lock:
-        if c.done is not None:
-            torch.cuda.current_stream().wait_event(c.done)
-        out = _replayed(c, k, fn, inputs).out
-        copy = HostCopy(out if out_len is None else out[:out_len])
-        c.done = copy.event
-        return copy
+    with annotate("programs.run", "programs"):
+        if device.type != "cuda":
+            out = _cpu_call(k, fn, inputs)
+            return HostCopy(out if out_len is None else out[:out_len])
+        c = _cache_for(device)
+        with torch.cuda.device(c.device), c.lock:
+            if c.done is not None:
+                torch.cuda.current_stream().wait_event(c.done)
+            out = _replayed(c, k, fn, inputs).out
+            copy = HostCopy(out if out_len is None else out[:out_len])
+            c.done = copy.event
+            return copy
 
 
 def run_device(device, k: tuple, fn, inputs) -> tuple:
@@ -381,13 +390,14 @@ def run_device(device, k: tuple, fn, inputs) -> tuple:
     return its outputs as tensors of their own on that device (on a card,
     copies made in the same turn, which no later replay overwrites)."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return tuple(_cpu_call(k, fn, inputs))
-    c = _cache_for(device)
-    with torch.cuda.device(c.device), c.lock:
-        if c.done is not None:
-            torch.cuda.current_stream().wait_event(c.done)
-        outs = tuple(o.clone() for o in _replayed(c, k, fn, inputs).out)
-        c.done = torch.cuda.Event()
-        c.done.record()
-        return outs
+    with annotate("programs.run", "programs"):
+        if device.type != "cuda":
+            return tuple(_cpu_call(k, fn, inputs))
+        c = _cache_for(device)
+        with torch.cuda.device(c.device), c.lock:
+            if c.done is not None:
+                torch.cuda.current_stream().wait_event(c.done)
+            outs = tuple(o.clone() for o in _replayed(c, k, fn, inputs).out)
+            c.done = torch.cuda.Event()
+            c.done.record()
+            return outs

@@ -5,8 +5,8 @@ while `cond(*state)`, a 0-dim bool tensor, holds; `state` is a tuple of
 tensors whose shapes and types the body keeps, and `max_trips` bounds the
 rounds any input can need (every loop of the programs doubles a gap that
 stops at the block size).  Run as it is (on the CPU, or in a card's
-warm-up run) it reads the predicate once a round and raises past the
-bound.  While models/programs.py captures a program, its runner takes
+warm-up run) it reads the predicate once a round, each read a
+"programs.flag" span (utils/tracing.py), and raises past the bound.  While models/programs.py captures a program, its runner takes
 over and turns the loop into graphs (see there).
 """
 
@@ -15,6 +15,8 @@ from __future__ import annotations
 import threading
 
 import torch
+
+from ..utils.tracing import annotate
 
 _local = threading.local()
 
@@ -25,7 +27,11 @@ def while_loop(cond, body, state: tuple, max_trips: int):
         return runner.while_loop(cond, body, tuple(state), max_trips)
     state = tuple(state)
     trips = 0
-    while bool(cond(*state)):
+    while True:
+        with annotate("programs.flag", "programs"):
+            go = bool(cond(*state))
+        if not go:
+            break
         if trips == max_trips:
             raise RuntimeError(f"while_loop: more than its bound of {max_trips} rounds")
         state = tuple(body(*state))

@@ -1,7 +1,8 @@
 """The port's process layer and tracing hooks on the CPU, held against
 bmh_tpu: compress_stream / decompress_stream in one process and in two
 gloo processes, the block validation bmh_tpu's decompress_stream lacks,
-and utils/tracing (annotate, device_trace, StageTimer, busy_ms)."""
+and utils/tracing (annotate, device_trace, the bench verb's span report,
+busy_ms; the recorder itself in tests/test_torch_tracing.py)."""
 
 import os
 import socket
@@ -138,10 +139,12 @@ def test_annotate_names_show_in_profiler():
     with torch.profiler.profile(activities=acts) as prof:
         with tracing.annotate("bmh_test_region"):
             torch.ones(4).sum()
-        bt.compress_bytes(STREAM[:BS], block_size=BS, device="cpu")
+        blob = bt.compress_bytes(STREAM[:BS], block_size=BS, device="cpu")
+        bt.decompress_bytes(blob, device="cpu")
     names = {e.name for e in prof.events()}
     assert "bmh_test_region" in names
     assert "compress_dispatch_b2" in names and "compress_assemble" in names
+    assert {"api.parse", "pipeline.stage", "programs.run"} <= names
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
@@ -159,12 +162,29 @@ def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     assert p2.exists() and p2.parent == tmp_path / "env"
 
 
-def test_stage_timer():
-    t = tracing.StageTimer()
-    for _ in range(3):
-        with t.stage("a"):
-            pass
-    assert t.counts == {"a": 3} and "a:" in t.report()
+def test_bench_reports_self_time_by_span(tmp_path, capsys):
+    """The bench verb runs under tracing.recording() and prints the
+    recorder's self time by span name, the most first, before its JSON
+    line."""
+    from bmh_tpu_torch import cli
+
+    (tmp_path / "a").write_bytes(STREAM[:BS])
+    (tmp_path / "b").write_bytes(STREAM[BS:3 * BS])
+    assert cli.main(["bench", "--corpus", str(tmp_path), "--files", "a,b",
+                     "--block-size", str(BS), "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("TOTAL")) + 1
+    report = lines[start:-1]
+    rows = {}
+    for ln in report:
+        name, _, rest = ln.partition(": ")
+        count, _, ms = rest.partition(" spans, self ")
+        rows[name] = (int(count), float(ms.removesuffix(" ms")))
+    assert rows["api.compress"][0] == rows["api.decompress"][0] == 2
+    assert {"api.parse", "pipeline.stage", "programs.run", "programs.wait"} <= set(rows)
+    selfs = [ms for _, ms in rows.values()]
+    assert selfs == sorted(selfs, reverse=True) and min(selfs) >= 0
+    assert tracing._recorder is None  # the verb's recorder is closed
 
 
 def test_busy_ms_is_the_union_of_spans():

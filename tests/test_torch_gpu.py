@@ -619,3 +619,35 @@ def test_upload_and_route_programs_replay_without_host_reads(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 4
+
+
+def test_recorder_on_the_card(cuda):
+    """utils/tracing's recorder around a compress and a decompress on the
+    card: the first call of each shape captures inside its programs.run (a
+    programs.capture span a capture); a second call captures nothing, its
+    programs.flag spans are the cache's flag reads, one each, and each
+    run's host copy is waited for once, in a programs.wait span."""
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.utils import tracing
+
+    data, _, _, _ = _program_inputs(4)
+    programs.clear()
+    programs.reset_stats()
+    with tracing.recording() as first:
+        blob = bt.compress_bytes(data, block_size=65536, device=cuda)
+        assert bt.decompress_bytes(blob, device=cuda) == data
+    by_id = {s[0]: s for s in first.spans}
+    captures = [s for s in first.spans if s[4] == "programs.capture"]
+    assert len(captures) == programs.STATS["captures"] >= 2
+    assert all(by_id[s[1]][4] == "programs.run" for s in captures)
+    programs.reset_stats()
+    with tracing.recording() as again:
+        assert bt.compress_bytes(data, block_size=65536, device=cuda) == blob
+        assert bt.decompress_bytes(blob, device=cuda) == data
+    counts = again.counts()
+    assert "programs.capture" not in counts and programs.STATS["captures"] == 0
+    assert counts["programs.flag"] == programs.STATS["flag_reads"] > 0
+    assert counts["programs.wait"] == counts["programs.run"] == programs.STATS["runs"]
+    assert [s[4] for s in again.spans if s[1] == 0] == ["api.compress", "api.decompress"]
+    waits = again.self_ns()
+    assert waits["programs.flag"] > 0 and waits["programs.wait"] > 0
