@@ -50,6 +50,7 @@ SOURCES = {
     "imtf_chunks": "imtf.cu",
     "ibwt_walk": "ibwt_walk.cu",
     "sort3": "sort3.cu",
+    "code_lengths": "code_lengths.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOGS: dict[str, str] = {}

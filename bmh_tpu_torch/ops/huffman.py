@@ -3,8 +3,9 @@
 Port of bmh_tpu/ops/huffman.py, batched over blocks.
 
 * Encode: two-queue code lengths over each block's 257-bin histogram
-  (a fixed 256-step loop with the batch written out), canonical (length, symbol)
-  codes, and a bit packer in which every symbol adds its code to at most
+  (kernel K6 on a card, csrc/code_lengths.cu; on the CPU its plain version,
+  a fixed 256-step loop with the batch written out), canonical (length,
+  symbol) codes, and a bit packer in which every symbol adds its code to at most
   two 32-bit words (bits of distinct symbols never overlap, so the sum is
   their OR).  Words are uint32 values carried in int64.
 * Decode: the payloads of a whole batch are cut into chunks of
@@ -20,13 +21,17 @@ Port of bmh_tpu/ops/huffman.py, batched over blocks.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import decode_kernels
+from . import _build, decode_kernels
+from .rle import RLE_ALPHABET
 
 MAX_LEN = 31
 GAPS = 32
 _BIG = 1 << 30
+_SRC = "code_lengths.cu"
 
 
 def histogram(syms: torch.Tensor, m: torch.Tensor, bins: int) -> torch.Tensor:
@@ -42,7 +47,7 @@ def histogram(syms: torch.Tensor, m: torch.Tensor, bins: int) -> torch.Tensor:
     return cnt.reshape(b, bins + 1)[:, :bins]
 
 
-def code_lengths_device(freqs: torch.Tensor) -> torch.Tensor:
+def code_lengths_plain(freqs: torch.Tensor) -> torch.Tensor:
     """(B, A) histograms -> (B, A) int64 optimal code lengths.
 
     The two-queue method exactly as bmh_tpu's code_lengths_device: leaves
@@ -96,6 +101,32 @@ def code_lengths_device(freqs: torch.Tensor) -> torch.Tensor:
         jump = torch.gather(jump, 1, jump)
     return torch.zeros((b, a), dtype=torch.int64, device=dev).scatter_(
         1, leafsym, dist[:, :a])
+
+
+def code_lengths_device(freqs: torch.Tensor) -> torch.Tensor:
+    """(B, 257) int64 histograms -> (B, 257) int64 optimal code lengths:
+    the plain version for a CPU tensor, kernel K6 for a CUDA tensor (one
+    launch for the batch, no host read: it runs inside captured programs).
+    Each row's counts must be adjacent; rows may lie apart, as histogram()'s
+    rows do in its wider buffer."""
+    b, a = freqs.shape if freqs.dim() == 2 else (0, 0)
+    if (a != RLE_ALPHABET or freqs.dtype != torch.int64 or freqs.stride(1) != 1
+            or (b > 1 and freqs.stride(0) < a)):
+        raise ValueError(f"code_lengths_device: needs int64 (B, {RLE_ALPHABET}) "
+                         f"histograms with contiguous rows, got {freqs.dtype} "
+                         f"{tuple(freqs.shape)} strides {freqs.stride()}")
+    if not _build.on_card(freqs, "code_lengths"):
+        return code_lengths_plain(freqs)
+    lens = torch.empty((b, a), dtype=torch.int64, device=freqs.device)
+    fn = _build.lib(_SRC).bmh_code_lengths
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.count_launch("code_lengths")
+    with _build.on_device(freqs) as stream:
+        _build.check(fn(freqs.data_ptr(), lens.data_ptr(), b, freqs.stride(0), stream),
+                     "code_lengths")
+    return lens
 
 
 def canonical_codes_device(lens: torch.Tensor) -> torch.Tensor:

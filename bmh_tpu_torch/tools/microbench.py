@@ -30,6 +30,8 @@ Cases (default all):
            one row a step (BMH_LF2=0) against the composed walk
   sparse   the sparse refinement of a real text batch's tied positions
            under five two-tier shapes
+  code_lengths  the code lengths of 32 histograms with every symbol
+           present (256 merges a row): kernel K6 against its plain version
 
 bmh_tpu read book1 of the Calgary corpus for `ibwt` and `sparse`; that file
 is not in the repository, so both read the seeded text of utils/synth.py
@@ -55,7 +57,7 @@ import torch
 
 B, NMAX = 32, 1 << 17
 CASES = ("bitpack", "sort", "lf", "prims", "radix", "compose", "place", "hist",
-         "ibwt", "sparse")
+         "ibwt", "sparse", "code_lengths")
 
 
 class Timer:
@@ -341,6 +343,19 @@ def bench_sparse(t: Timer, seed: int) -> dict:
             "equal": {"refined ranks": all(torch.equal(ranks[0], r) for r in ranks)},
             "port_uses": f"sparse_t1={old[0]}_t2d={old[1]} (BMH_TIER1_ROUNDS, BMH_TIER2_DIV)",
             "bmh_tpu_uses": "sparse_t1=2_t2d=4"}
+
+
+def bench_code_lengths(t: Timer, seed: int) -> dict:
+    from ..ops import huffman
+
+    freqs = 1 + _rand(_gen(seed), 999, (B, 257))
+    forms = {"code_lengths_k6": lambda: huffman.code_lengths_device(freqs),
+             "code_lengths_plain": lambda: huffman.code_lengths_plain(freqs)}
+    outs = [f() for f in forms.values()]
+    return {"ms": {k: t(f) for k, f in forms.items()},
+            "equal": {"code lengths (K6, plain)": torch.equal(*outs)},
+            "port_uses": "code_lengths_k6 (ops/huffman.code_lengths_device on a card)",
+            "bmh_tpu_uses": "a lax.scan of 256 merge steps (no Pallas kernel)"}
 
 
 BENCHES = {name: globals()[f"bench_{name}"] for name in CASES}

@@ -1,7 +1,8 @@
 """Seeded synthetic inputs: the stream of the GPU smoke run and the
 profiler, the workloads of its upload and route phases (many small files,
-zero-heavy pages, a stream of repeated records), and kernel inputs made to
-hurt the designs of K1, K2 and K3."""
+zero-heavy pages, a stream of repeated records), kernel inputs made to
+hurt the designs of K1, K2 and K3, and the histograms that hold K6 and its
+plain version to the two-queue method's ties and edges."""
 
 from __future__ import annotations
 
@@ -180,3 +181,55 @@ def fibonacci_stream(k: int, seed: int) -> np.ndarray:
         counts.append(counts[-1] + counts[-2])
     syms = rng.choice(257, k, replace=False)
     return rng.permutation(np.repeat(syms, counts[:k])).astype(np.int64)
+
+
+def code_length_cases() -> dict[str, np.ndarray]:
+    """Named (rows, 257) int64 histogram sets for the code lengths (K6 and
+    its plain version):
+      edges     frequency ties, all-equal present symbols, a sparse row,
+                powers of two (deep), a single symbol, two equal symbols
+      one, two  one present symbol; two of counts 1 and 500
+      all_257   every symbol present
+      fibonacci 26 symbols with Fibonacci counts: a 25-bit code
+      random    256 seeded rows, by fours: counts 0..3 (many ties), one
+                count at a random share of the symbols (all equal), a
+                sparse row of counts below 1000, a row of counts below 2^20
+      empty     an all-zero row, a single-symbol row"""
+    rng = np.random.default_rng(3)
+    edges = [rng.integers(0, 4, 257),
+             np.where(np.arange(257) % 7 == 0, 5, 0),
+             rng.integers(0, 1000, 257) * (rng.random(257) < 0.3),
+             (2 ** np.minimum(np.arange(257), 20)) * (np.arange(257) < 22),
+             np.eye(1, 257, 42)[0].astype(np.int64) * 9,
+             np.array([3, 3] + [0] * 255)]
+    cases = {"edges": np.stack(edges)}
+    for name in ("one", "two", "all_257"):  # each from the seed anew
+        rng = np.random.default_rng(11)
+        f = np.zeros(257, np.int64)
+        if name == "one":
+            f[rng.integers(257)] = 1000
+        elif name == "two":
+            f[rng.choice(257, 2, replace=False)] = (1, 500)
+        else:
+            f[:] = rng.integers(1, 5000, 257)
+        cases[name] = f
+    f = np.zeros(257, np.int64)
+    np.add.at(f, fibonacci_stream(26, 5), 1)
+    cases["fibonacci"] = f
+    rng = np.random.default_rng(19)
+    rows = []
+    for r in range(256):
+        kind = r % 4
+        if kind == 0:
+            rows.append(rng.integers(0, 4, 257))
+        elif kind == 1:
+            rows.append(np.where(rng.random(257) < rng.random(), 1 + rng.integers(100), 0))
+        elif kind == 2:
+            rows.append(rng.integers(0, 1000, 257) * (rng.random(257) < 0.3))
+        else:
+            rows.append(rng.integers(0, 1 << 20, 257))
+    cases["random"] = np.stack(rows)
+    single = np.zeros(257, np.int64)
+    single[rng.integers(257)] = 1 + rng.integers(1 << 20)
+    cases["empty"] = np.stack([np.zeros(257, np.int64), single])
+    return {k: np.atleast_2d(v).astype(np.int64) for k, v in cases.items()}

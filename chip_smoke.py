@@ -24,7 +24,8 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               bits, under a table per chunk, at 32-, 64- and 544-bit
               chunks; K3 on all-zero, all-255 and random codes.  K1 and K2
               on bitpacked streams whose codes reach 25 and 28 bits
-              (utils/synth.fibonacci_stream), decoded back.  bound_ms
+              (utils/synth.fibonacci_stream), decoded back.  K6 on the
+              histograms of the stream's first 32 blocks.  bound_ms
               counts the least work any implementation needs
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
      trip     decompress at 128 KiB on the card, with default knobs, with
@@ -72,8 +73,9 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               golden SHA-256, bit-exact, graphs captured and replayed,
               capture seconds, host waits per batch (ab_trees.count_syncs),
               wall / device / busy ms, idle share, peak memory cold and
-              warm; the 256-step code-length loop as a graph of its own,
-              its replay's card time and device operations; what the loop
+              warm; the code lengths of 32 stream blocks as a graph of
+              their own, by K6 and by its plain 256-step loop: equal,
+              each replay's card time and device operations; what the loop
               flags cost a compress (replays with the rounds given)
   8. blocks   the stream's first 2 MiB at 1 MiB blocks, at 100000-byte
               blocks and at BMH_CURSOR_STRIDE=64: bmh_tpu's SHA-256 for each
@@ -620,6 +622,7 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         plain=lambda: sort_kernel.sort3_plain(*k5),
         library=lambda: sort_library(*k5),
         bytes=k5_bytes, ops=k5_ops, reps=10, shapes=[list(t.shape) for t in k5]))
+    cases.append(code_lengths_case(head))
     return hold(cases)
 
 
@@ -950,44 +953,80 @@ def flag_cost(bt, data: bytes, card: str) -> None:
           f"{statistics.median(ms['given']):.3f}; runs {json.dumps(ms)}", flush=True)
 
 
-def huffman_graph(bt, data: bytes, card: str) -> None:
-    """code_lengths_device, the fixed 256-step loop, on the histograms of
-    the stream's first 32 blocks, as a program of its own: its replay's
-    card time (CUDA events) and kernels (one profiled replay), against the
-    same function run as it is (host clock, synchronized)."""
-    from bmh_tpu_torch.models import pipeline, programs
-    from bmh_tpu_torch.ops import bwt, huffman
-    from bmh_tpu_torch.utils import config, tracing
+def stream_histograms(data: bytes) -> torch.Tensor:
+    """The (32, 257) RLE0 histograms of the stream's first 32 blocks, as the
+    compress program computes them: the batch of the benchmark's cells."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.ops import bwt
+    from bmh_tpu_torch.utils import config
 
     arr = np.frombuffer(data[: 32 * BLOCK], np.uint8)
     batch = torch.from_numpy(arr.reshape(32, BLOCK).copy()).cuda()
     n = torch.full((32,), BLOCK, dtype=torch.int64, device="cuda")
     last = bwt.bwt_forward_cp(batch, n, config.DEFAULT.cursor_stride)[0]
-    freqs = pipeline._symbols(last, n)[2]
-    fn = huffman.code_lengths_device
-    prog = programs._Program(programs._cache_for(torch.device("cuda")), fn,
-                             (freqs.cpu().numpy(),))
-    prog.load((freqs.cpu().numpy(),))
-    prog.warm_up()
-    prog.capture()
-    prog.replay()
-    torch.cuda.synchronize()
-    eager = fn(freqs)
-    require(torch.equal(prog.out, eager), "[graphs] the code-length graph differs")
-    replay_ms = cuda_ms(prog.replay, 10)
-    ops = len(tracing.device_profile(prog.replay)["spans"])
-    walls = []
-    for _ in range(5):
-        t = time.perf_counter()
-        fn(freqs)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
+    return pipeline._symbols(last, n)[2]
+
+
+def code_lengths_case(data: bytes) -> dict:
+    """K6 on the stream's 32 histograms, for the kernels check.  The least
+    work: the bytes in and out; the operations of a sort of each row's 257
+    leaves and of its merges (two compares, an add, a store).  The chain
+    is the fullest row's merges, which one thread runs in order."""
+    from bmh_tpu_torch.ops import huffman
+
+    freqs = stream_histograms(data)
+    merges = ((freqs > 0).sum(1) - 1).clamp(min=0)
+    b, a = freqs.shape
+    return dict(
+        name="code_lengths", source="bmh_tpu_torch/csrc/code_lengths.cu",
+        replaces="none (bmh_tpu/ops/huffman.py code_lengths_device is a lax.scan)",
+        kernel=lambda: huffman.code_lengths_device(freqs),
+        plain=lambda: huffman.code_lengths_plain(freqs),
+        bytes=2 * nbytes(freqs), ops=b * a * 9 + 4 * int(merges.sum()), reps=20,
+        chain=int(merges.max()), chain_unit="merges of the fullest row (one thread runs them)",
+        shapes=[list(freqs.shape)])
+
+
+def huffman_graph(bt, data: bytes, card: str) -> None:
+    """The code lengths of the stream's first 32 blocks, each way as a
+    program of its own: kernel K6 (code_lengths_device, one launch) and its
+    plain version (the fixed 256-step loop).  Both replays must equal the
+    eager kernel; printed: each replay's card time (CUDA events), its device
+    operations (one profiled replay), and each run as it is (host clock,
+    synchronized)."""
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.ops import huffman
+    from bmh_tpu_torch.utils import tracing
+
+    freqs = stream_histograms(data)
+    eager = huffman.code_lengths_device(freqs)
     present = int((freqs > 0).sum(1).max())
-    print(f"[graphs] code_lengths_device at {list(freqs.shape)} (at most {present} "
-          f"symbols in a row) {card}: one graph of {ops} device operations (kernels, "
-          f"fills, copies), replay {replay_ms:.4f} ms by CUDA events "
-          f"({replay_ms * 1e3 / max(ops, 1):.2f} us each); run as it is {statistics.median(walls):.3f} ms (host clock, "
-          f"median of 5)", flush=True)
+    for label, fn in (("kernel", huffman.code_lengths_device),
+                      ("plain", huffman.code_lengths_plain)):
+        # device inputs: no pinned staging buffer in flight at the capture
+        torch.cuda.synchronize()
+        prog = programs._Program(programs._cache_for(torch.device("cuda")), fn, (freqs,))
+        prog.load((freqs,))
+        prog.warm_up()
+        prog.capture()
+        prog.out.zero_()
+        prog.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(prog.out, eager),
+                f"[graphs] the code-length graph ({label}) differs from the kernel")
+        replay_ms = cuda_ms(prog.replay, 10)
+        ops = len(tracing.device_profile(prog.replay)["spans"])
+        walls = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn(freqs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        print(f"[graphs] code lengths ({label}) at {list(freqs.shape)} (at most {present} "
+              f"symbols in a row) {card}: equal to the kernel; one graph of {ops} device "
+              f"operations (kernels, fills, copies), replay {replay_ms:.4f} ms by CUDA "
+              f"events ({replay_ms * 1e3 / max(ops, 1):.2f} us each); run as it is "
+              f"{statistics.median(walls):.3f} ms (host clock, median of 5)", flush=True)
 
 
 def blocks_phase(bt, data: bytes, golden: dict | None, card: str) -> None:

@@ -1,5 +1,5 @@
-"""bmh_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, and the codec round trip against its CPU run.
+"""bmh_tpu_torch on a CUDA card: each kernel (K1-K6) against its plain
+PyTorch version, and the codec round trip against its CPU run.
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -289,6 +289,57 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):  # 4 bytes off a 16-byte line
         sort_kernel.sort3(*(torch.zeros(1025, dtype=torch.int32, device=cuda)[1:][None]
                             for _ in range(3)))
+    for bad in (torch.ones((4, 256), dtype=torch.int64, device=cuda),
+                torch.ones((257, 4), dtype=torch.int64, device=cuda).T,
+                torch.ones((4, 257), dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):
+            thuf.code_lengths_device(bad)
+
+
+CODE_LENGTH_CASES = ["edges", "one", "two", "all_257", "fibonacci", "random", "empty",
+                     "b1", "b8", "b32"]
+
+
+@pytest.mark.parametrize("case", CODE_LENGTH_CASES)
+def test_code_lengths_kernel_matches_plain(cuda, case):
+    """K6 against its plain version, bit for bit, in one launch: the CPU
+    tests' sets (ties, all-equal rows, 0 and 1 present symbols, the 25-bit
+    code), 256 seeded rows, and batches of 1, 8 and 32 rows drawn from
+    them (the Fibonacci row first)."""
+    cases = synth.code_length_cases()
+    if case.startswith("b"):
+        mix = np.concatenate([cases[k] for k in ("fibonacci", "edges", "empty", "random")])
+        freqs = mix[: int(case[1:])]
+    else:
+        freqs = cases[case]
+    f = torch.from_numpy(freqs).to(cuda)
+    _build.reset_launches()
+    got = thuf.code_lengths_device(f)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["code_lengths"] == 1
+    assert got.dtype == torch.int64 and got.shape == f.shape
+    assert torch.equal(got, thuf.code_lengths_plain(f))
+
+
+def test_code_lengths_kernel_in_a_captured_program(cuda):
+    """K6 captured as the compress program captures it (sync debug mode
+    "error"): every replay equals the eager run and counts one launch."""
+    from bmh_tpu_torch.models import programs
+
+    freqs = synth.code_length_cases()["random"][:32]
+    prog = programs._Program(programs._cache_for(cuda), thuf.code_lengths_device, (freqs,))
+    prog.load((freqs,))
+    prog.warm_up()
+    prog.capture()
+    eager = thuf.code_lengths_device(torch.from_numpy(freqs).to(cuda))
+    assert torch.equal(eager, thuf.code_lengths_plain(torch.from_numpy(freqs).to(cuda)))
+    _build.reset_launches()
+    for k in range(3):
+        prog.out.zero_()
+        prog.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(prog.out, eager)
+        assert _build.LAUNCHES["code_lengths"] == k + 1
 
 
 def test_decode_on_side_streams_while_another_batch_runs(cuda):
@@ -570,6 +621,7 @@ def test_programs_replay_the_main_path(cuda, monkeypatch, sort3):
     assert all(_build.LAUNCHES[k] == 1 for k in ("gap_decode_phase_a",
                                                  "gap_decode_phase_b",
                                                  "imtf_chunks", "ibwt_walk"))
+    assert _build.LAUNCHES["code_lengths"] == 1  # one compress batch
     assert (_build.LAUNCHES["sort3"] > 0) == sort3
 
 

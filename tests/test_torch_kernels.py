@@ -2,8 +2,10 @@
 Pallas function in interpret mode and against bmh_tpu's scan formulation
 (K1, K2 and K3 also on inputs made to hurt their kernels' designs),
 on the same numpy inputs; K4's composed walk against its one-row-a-step
-walk, and its composed links against bmh_tpu's _compose_packed.  Integer
-outputs are compared exactly (tolerance 0)."""
+walk, and its composed links against bmh_tpu's _compose_packed.  K6's
+wrapper on the CPU: its plain version against bmh_tpu's code lengths on
+synth.code_length_cases, and what it refuses.  The kernel sources the
+build knows.  Integer outputs are compared exactly (tolerance 0)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from bmh_tpu.ops import huffman as jhuf
 from bmh_tpu.ops import pallas_decode as PD
 from bmh_tpu.ops import pallas_ibwt as PI
 from bmh_tpu.ops import pallas_mtf as PM
+from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.ops import bwt as tbwt
 from bmh_tpu_torch.ops import decode_kernels as tdk
 from bmh_tpu_torch.ops import huffman as thuf
@@ -330,3 +333,48 @@ def test_compose_plain_matches_jax_compose(nmax):
             links = jbwt._compose_packed(links)
         np.testing.assert_array_equal(
             got[i].numpy(), np.asarray(links & jnp.uint32((1 << 23) - 1)).astype(np.int64))
+
+
+KERNEL_SOURCES = {"gap_decode_phase_a": "gap_decode.cu", "gap_decode_phase_b": "gap_decode.cu",
+                  "imtf_chunks": "imtf.cu", "ibwt_walk": "ibwt_walk.cu",
+                  "sort3": "sort3.cu", "code_lengths": "code_lengths.cu"}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_SOURCES))
+def test_kernel_sources_exist(name):
+    """Each kernel's launch count and source under csrc/, which the card
+    builds (K6: code_lengths.cu)."""
+    assert set(_build.SOURCES) == set(KERNEL_SOURCES) == set(_build.LAUNCHES)
+    assert _build.SOURCES[name] == KERNEL_SOURCES[name]
+    assert (_build.CSRC / KERNEL_SOURCES[name]).is_file()
+
+
+@pytest.mark.parametrize("case", ["edges", "one", "two", "all_257", "fibonacci",
+                                  "random", "empty"])
+def test_code_lengths_plain_on_cpu_matches_bmh_tpu(case):
+    """A CPU tensor takes the plain version (no launch counted), which
+    equals bmh_tpu's code lengths row by row: ties, all-equal rows, rows
+    of 0 and 1 present symbols (all lengths 0), the 25-bit code."""
+    freqs = synth.code_length_cases()[case]
+    before = _build.LAUNCHES["code_lengths"]
+    got = thuf.code_lengths_device(torch.from_numpy(freqs))
+    assert _build.LAUNCHES["code_lengths"] == before
+    assert torch.equal(got, thuf.code_lengths_plain(torch.from_numpy(freqs)))
+    want = jax.jit(jax.vmap(jhuf.code_lengths_device))(jnp.asarray(freqs, jnp.int32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if case == "empty":
+        assert not got.any()
+    if case == "fibonacci":
+        assert int(got.max()) == 25
+
+
+@pytest.mark.parametrize("bad", ["alphabet_256", "one_dim", "not_contiguous", "int32"])
+def test_code_lengths_wrapper_rejects_bad_inputs_on_cpu(bad):
+    """The kernel reads each row's 257 int64 counts side by side: the
+    wrapper refuses anything else before either route runs."""
+    f = {"alphabet_256": torch.ones((4, 256), dtype=torch.int64),
+         "one_dim": torch.ones(257, dtype=torch.int64),
+         "not_contiguous": torch.ones((257, 4), dtype=torch.int64).T,
+         "int32": torch.ones((4, 257), dtype=torch.int32)}[bad]
+    with pytest.raises(ValueError, match="int64 .B, 257. histograms with contiguous rows"):
+        thuf.code_lengths_device(f)

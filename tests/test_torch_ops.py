@@ -21,6 +21,7 @@ from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import mtf as tmtf
 from bmh_tpu_torch.ops import rle as trle
 from bmh_tpu_torch.utils import container as tcont
+from bmh_tpu_torch.utils import synth
 
 NMAX = 2048
 
@@ -146,18 +147,8 @@ def test_mtf_inverse_matches_jax(rows):
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
 
 
-def _hists(rng):
-    h = [rng.integers(0, 4, 257),                 # many frequency ties
-         np.where(np.arange(257) % 7 == 0, 5, 0),  # all-equal present symbols
-         rng.integers(0, 1000, 257) * (rng.random(257) < 0.3),
-         (2 ** np.minimum(np.arange(257), 20)) * (np.arange(257) < 22),  # deep
-         np.eye(1, 257, 42)[0].astype(np.int64) * 9,  # single symbol
-         np.array([3, 3] + [0] * 255)]
-    return np.stack(h).astype(np.int64)
-
-
 def test_code_lengths_and_tables_match_jax():
-    freqs = _hists(np.random.default_rng(3))
+    freqs = synth.code_length_cases()["edges"]
     lens = thuf.code_lengths_device(torch.from_numpy(freqs))
     codes = thuf.canonical_codes_device(lens)
     count, sym = thuf.decode_tables_device(lens)

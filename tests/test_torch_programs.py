@@ -98,23 +98,9 @@ def test_same_shape_and_knobs_hit_the_cache():
 
 # --- (b) the fixed-trip code lengths ----------------------------------------
 
-def _histograms(case: str) -> np.ndarray:
-    rng = np.random.default_rng(11)
-    f = np.zeros(257, np.int64)
-    if case == "one":
-        f[rng.integers(257)] = 1000
-    elif case == "two":
-        f[rng.choice(257, 2, replace=False)] = (1, 500)
-    elif case == "all_257":
-        f[:] = rng.integers(1, 5000, 257)
-    else:  # Fibonacci counts over 26 symbols: the deepest code, 25 bits
-        np.add.at(f, synth.fibonacci_stream(26, 5), 1)
-    return f
-
-
 @pytest.mark.parametrize("case", ["one", "two", "all_257", "fibonacci"])
 def test_fixed_trip_code_lengths_match_bmh_tpu(case):
-    f = _histograms(case)
+    f = synth.code_length_cases()[case][0]
     got = thuf.code_lengths_device(torch.from_numpy(f)[None])[0].numpy()
     want = np.asarray(jax.jit(jhuf.code_lengths_device)(jnp.asarray(f, jnp.int32)))
     np.testing.assert_array_equal(got, want)
