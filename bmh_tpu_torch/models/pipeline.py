@@ -4,9 +4,12 @@ Compress, bmh_tpu's two programs: BWT with checkpoints -> MTF -> RLE0 ->
 histogram -> two-queue code lengths -> canonical codes -> bitpack, for a
 batch of blocks at once, then one device->host copy of [per-block metadata
 | compacted payload words].  The BWT runs the sparse/adaptive program
-(`compress_sparse_fn`: a few doubling rounds, the adaptive handoff, sparse
+(`sparse_ranks`: a few doubling rounds, the adaptive handoff, sparse
 refinement of the tied positions) unless the batch looks run-dominated,
-which takes the full-rounds program (`compress_full_fn`).
+which takes the full-rounds program (`ops/bwt.bwt_forward_cp`).  A compress
+program marks three stages (ops/control.stage), which the card times:
+`bwt`, `mtf` (MTF, RLE0, histograms) and `entropy` (code lengths,
+canonical codes, bitpack, the flattened output).
 
 Decompress, bmh_tpu's three routes:
 * flat (aperiodic blocks): host staging of the batch's payloads on one
@@ -66,7 +69,7 @@ from ..ops import bwt as ops_bwt
 from ..ops import huffman as ops_huf
 from ..ops import mtf as ops_mtf
 from ..ops import rle as ops_rle
-from ..ops.control import doublings, scalar, while_loop
+from ..ops.control import doublings, scalar, stage, while_loop
 from ..utils import config as config_mod
 from ..utils.tracing import annotate
 from . import programs
@@ -137,34 +140,6 @@ def compress_stage1_fn(data: torch.Tensor, n: torch.Tensor, stride: int):
     checkpoints every `stride` positions, aperiodic flag)."""
     last, shift, cps, aperiodic = ops_bwt.bwt_forward_cp(data, n, stride)
     return (*_symbols(last, n), shift, cps, aperiodic)
-
-
-def _encode(last: torch.Tensor, n: torch.Tensor):
-    """Last column -> (words, total_bits, lens, freqs, m RLE0 counts)."""
-    syms, m, freqs = _symbols(last, n)
-    lens = ops_huf.code_lengths_device(freqs)
-    canon = ops_huf.canonical_codes_device(lens)
-    words, total_bits = ops_huf.encode_bitpack(syms, m, lens, canon)
-    return words, total_bits, lens, freqs, m
-
-
-def compress_full_fn(data: torch.Tensor, n: torch.Tensor, stride: int):
-    """Whole compress of a (B, Nmax) batch by the full-rounds program.
-
-    Returns (words (B, W) int64 uint32 values, total_bits, lens (B, 257),
-    freqs (B, 257), m RLE0 counts, shift, cps, aperiodic)."""
-    last, shift, cps, aperiodic = ops_bwt.bwt_forward_cp(data, n, stride)
-    return (*_encode(last, n), shift, cps, aperiodic)
-
-
-def compress_sparse_fn(data: torch.Tensor, n: torch.Tensor, stride: int,
-                       b_pad: int):
-    """Whole compress of a (B, Nmax) batch by the sparse/adaptive program;
-    b_pad is the batch size rounded up to a power of two, which sizes the
-    compact set.  Returns compress_full_fn's tuple."""
-    rank = sparse_ranks(data, n, b_pad)
-    last, shift, cps, aperiodic = ops_bwt.bwt_finish_cp(data, n, rank, stride)
-    return (*_encode(last, n), shift, cps, aperiodic)
 
 
 def _sparse_cap(b_pad: int, nmax: int) -> int:
@@ -265,16 +240,25 @@ def _flatten_out(words, bits, lens, freqs, m, shift, cps, aper) -> torch.Tensor:
 
 def compress_program(data: torch.Tensor, n: torch.Tensor, stride: int,
                      hard: bool, b_pad: int) -> torch.Tensor:
-    """The whole compress of a (B, Nmax) batch as one program: the
-    full-rounds program (hard) or the sparse/adaptive one, whose compact
-    set b_pad (the batch rounded up to a power of two) sizes, then
-    _flatten_out.  On a card B = b_pad, the rows past the batch carrying
-    n = 1 as bmh_tpu's dummy rows do."""
-    if hard:
-        out = compress_full_fn(data, n, stride)
-    else:
-        out = compress_sparse_fn(data, n, stride, b_pad)
-    return _flatten_out(*out)
+    """The whole compress of a (B, Nmax) batch as one program: the BWT by
+    the full-rounds program (hard) or the sparse/adaptive one, whose
+    compact set b_pad (the batch rounded up to a power of two) sizes, then
+    MTF, RLE0 and histograms, then code lengths, canonical codes, bitpack
+    and _flatten_out, each stage marked.  On a card B = b_pad, the rows
+    past the batch carrying n = 1 as bmh_tpu's dummy rows do."""
+    with stage("bwt"):
+        if hard:
+            last, shift, cps, aper = ops_bwt.bwt_forward_cp(data, n, stride)
+        else:
+            rank = sparse_ranks(data, n, b_pad)
+            last, shift, cps, aper = ops_bwt.bwt_finish_cp(data, n, rank, stride)
+    with stage("mtf"):
+        syms, m, freqs = _symbols(last, n)
+    with stage("entropy"):
+        lens = ops_huf.code_lengths_device(freqs)
+        canon = ops_huf.canonical_codes_device(lens)
+        words, bits = ops_huf.encode_bitpack(syms, m, lens, canon)
+        return _flatten_out(words, bits, lens, freqs, m, shift, cps, aper)
 
 
 # The compact upload (bmh_tpu's _upload_batch): a batch whose padding would

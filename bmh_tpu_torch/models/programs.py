@@ -24,8 +24,14 @@ stream order, and replays.  A `control.while_loop` inside the function
 splits the capture: the code before the loop, the loop's body and the code
 after it are graphs of their own, and the replay runs the body graph while
 its predicate, copied to pinned memory, says to go on (one small read a
-round; the `flag_reads` count).  A capture that fails raises: there is no
-eager path on a card.  A collective of torch.distributed inside a program
+round; the `flag_reads` count).  A `control.stage(label)` mark inside the
+function closes the graph open and opens the next one, and every step
+captured from then on carries `label`; the program's first mark names the
+graph that the capture opened with.  A replay records a timing event on
+its stream wherever the label changes and once at the end, and the
+output copy's `HostCopy.wait` adds each stage's milliseconds to
+`STATS["stage_ms.<label>"]` (see STAGES).  A capture that fails raises:
+there is no eager path on a card.  A collective of torch.distributed inside a program
 (the sharded steps, NCCL on a card) is captured like any other work: the
 warm-up has run it once, so its communicator exists before the capture.
 
@@ -70,11 +76,18 @@ KNOBS = ("mtf_chunk", "imtf_chunk", "full_rounds", "sparse_cap_div",
          "tier1_rounds", "tier2_div", "pallas_sort", "pallas_decode",
          "pallas_imtf", "lf2", "decode_place", "min_bucket", "debug_sparse")
 
+# the stages that the compress programs mark (models/pipeline.py)
+STAGES = ("bwt", "mtf", "entropy")
 # counts since the process started (or reset_stats): programs run, cache
 # hits, warm-ups, captures and their seconds, graphs captured, graph
-# replays (a loop body's every round counted), flag reads
+# replays (a loop body's every round counted), flag reads, and each
+# stage's milliseconds on the card over the replays whose output copy was
+# waited for.  A stage's time runs from the event recorded where it starts
+# to the next one on the stream, so it includes the card's idle gaps
+# inside the stage, such as a loop's flag-read round trips
 STATS = {"runs": 0, "hits": 0, "warmups": 0, "captures": 0, "capture_s": 0.0,
-         "graphs": 0, "replays": 0, "flag_reads": 0}
+         "graphs": 0, "replays": 0, "flag_reads": 0,
+         **{f"stage_ms.{s}": 0.0 for s in STAGES}}
 _stats_lock = threading.Lock()
 _caches: dict = {}  # device -> _DeviceCache
 _cpu_keys: OrderedDict = OrderedDict()  # the CPU's keys: counts only
@@ -99,8 +112,8 @@ def _count(**kw) -> None:
 
 def reset_stats() -> None:
     with _stats_lock:
-        for k in STATS:
-            STATS[k] = 0.0 if k == "capture_s" else 0
+        for k, v in STATS.items():
+            STATS[k] = 0.0 if isinstance(v, float) else 0
 
 
 class Feed:
@@ -118,10 +131,13 @@ class Feed:
 class HostCopy:
     """A device tensor's copy to the host: on a card, into pinned memory
     with an event recorded after it (started, not waited for); on the CPU,
-    the tensor itself."""
+    the tensor itself.  `marks` are the stage marks of the replay that
+    made the tensor (_Program.replay), counted once the copy is waited
+    for."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, marks: list = ()):
         self.event = None
+        self.marks = marks
         if t.device.type != "cuda":
             self.host = t
             return
@@ -134,17 +150,23 @@ class HostCopy:
         with annotate("programs.wait", "programs"):
             if self.event is not None:
                 self.event.synchronize()
+            # the marks were recorded before the copy on its stream: all done
+            marks, self.marks = self.marks, ()
+            for (label, a), (_, b) in zip(marks, marks[1:]):
+                _count(**{f"stage_ms.{label}": a.elapsed_time(b)})
             return self.host.numpy()
 
 
 class _Capture:
-    """The while_loop runner of one capture: cuts the program into graphs
-    at its loops (see the module docstring).  `steps` lists them in replay
-    order: ("graph", g, launches) or ("loop", g, launches, flag)."""
+    """The while_loop and stage runner of one capture: cuts the program
+    into graphs at its loops and stage marks (see the module docstring).
+    `steps` lists them in replay order: ("graph", label, g, launches) or
+    ("loop", label, g, launches, flag); label is None before any mark."""
 
     def __init__(self, pool):
         self.pool = pool
         self.steps: list = []
+        self.label = None
         self._graph = None
         self._tally = None
 
@@ -160,7 +182,7 @@ class _Capture:
         finally:
             self._rec.__exit__(None, None, None)
         g, tally, self._graph = self._graph, dict(self._tally), None
-        return g, tally
+        return self.label, g, tally
 
     def while_loop(self, cond, body, state: tuple, max_trips: int) -> tuple:
         # private copies: the body graph writes its new state back into them
@@ -176,6 +198,21 @@ class _Capture:
         self.begin()
         return state
 
+    def stage(self, label: str) -> None:
+        if label not in STAGES:
+            raise ValueError(f"unknown stage {label!r}: not in programs.STAGES")
+        if self.steps or self.label is not None:
+            self.steps.append(("graph", *self.end()))
+            self.begin()
+        self.label = label
+
+
+def _timing_event() -> torch.cuda.Event:
+    """A timing event recorded now on the current stream."""
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
 
 class _Program:
     """One cache entry on a card: static inputs, the captured steps and the
@@ -188,6 +225,7 @@ class _Program:
                                    device=cache.device) for x in inputs]
         self.steps = None
         self.out = None
+        self.marks: list = []  # the last replay's stage marks
 
     def load(self, inputs) -> None:
         """Copy the inputs into the static ones, in stream order: host
@@ -248,18 +286,24 @@ class _Program:
         replay of the same inputs returned), the loops run that many rounds
         without reading a flag: what a loop on the card (a conditional
         WHILE node) would save, measured (chip_smoke.py `[graphs]`); it is
-        right only for those inputs."""
+        right only for those inputs.  A program with stage marks records
+        a timing event before the first step of each stage and one after
+        the last step, into `marks` as (label, event)."""
         host = torch.empty(1, dtype=torch.int32, pin_memory=True)
         ev = torch.cuda.Event()
         replays = reads = 0
         ran = []
+        marks, label = [], None
         for step in self.steps:
+            if step[1] != label:
+                label = step[1]
+                marks.append((label, _timing_event()))
             if step[0] == "graph":
-                step[1].replay()
-                _build.add_launches(step[2])
+                step[2].replay()
+                _build.add_launches(step[3])
                 replays += 1
                 continue
-            _, g, tally, flag = step
+            _, _, g, tally, flag = step
             rounds = 0
             while True:
                 if trips is not None:
@@ -278,6 +322,9 @@ class _Program:
                 replays += 1
                 rounds += 1
             ran.append(rounds)
+        if marks:
+            marks.append((None, _timing_event()))
+        self.marks = marks
         _count(replays=replays, flag_reads=reads)
         return ran
 
@@ -378,8 +425,9 @@ def run(device, k: tuple, fn, inputs, out_len: int | None = None) -> HostCopy:
         with torch.cuda.device(c.device), c.lock:
             if c.done is not None:
                 torch.cuda.current_stream().wait_event(c.done)
-            out = _replayed(c, k, fn, inputs).out
-            copy = HostCopy(out if out_len is None else out[:out_len])
+            prog = _replayed(c, k, fn, inputs)
+            copy = HostCopy(prog.out if out_len is None else prog.out[:out_len],
+                            prog.marks)
             c.done = copy.event
             return copy
 

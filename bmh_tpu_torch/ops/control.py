@@ -8,11 +8,18 @@ stops at the block size).  Run as it is (on the CPU, or in a card's
 warm-up run) it reads the predicate once a round, each read a
 "programs.flag" span (utils/tracing.py), and raises past the bound.  While models/programs.py captures a program, its runner takes
 over and turns the loop into graphs (see there).
+
+`with stage(label):` marks a stage of a program.  Run as it is, it is a
+span "stage.<label>" of the layer "device programs" and counts nothing;
+while a program is captured, the runner starts a new graph there whose
+replays are timed on the card as the stage (models/programs.py), and the
+stage lasts until the next mark or the program's end.
 """
 
 from __future__ import annotations
 
 import threading
+from contextlib import nullcontext
 
 import torch
 
@@ -37,6 +44,14 @@ def while_loop(cond, body, state: tuple, max_trips: int):
         state = tuple(body(*state))
         trips += 1
     return state
+
+
+def stage(label: str):
+    runner = getattr(_local, "runner", None)
+    if runner is not None:
+        runner.stage(label)
+        return nullcontext()
+    return annotate(f"stage.{label}", "device programs")
 
 
 def doublings(h, cap: int) -> int:

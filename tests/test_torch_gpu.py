@@ -703,3 +703,48 @@ def test_recorder_on_the_card(cuda):
     assert [s[4] for s in again.spans if s[1] == 0] == ["api.compress", "api.decompress"]
     waits = again.self_ns()
     assert waits["programs.flag"] > 0 and waits["programs.wait"] > 0
+
+
+def _reference_blocks(data: bytes, block_size: int) -> bytes:
+    """bmhbench/reference.py's container of `data`, its blocks encoded in
+    one process per core (one 1 MiB block takes seconds there)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from bmhbench import reference
+
+    blocks = reference.split(data, block_size)
+    with ProcessPoolExecutor(min(os.cpu_count() or 1, 8),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        enc = list(pool.map(reference.encode_block, blocks, [4096] * len(blocks)))
+    return reference.pack_file(enc, block_size, len(data), 4096)
+
+
+def test_stage_times_of_a_1mib_compress_batch(cuda):
+    """One warm compress batch of 32 blocks of 1 MiB (the archive's
+    dispatch): each stage's counter (programs.STATS["stage_ms.*"], timing
+    events between the replay's stages) is positive, the three add up to
+    within 10% of the batch's device time by the profiler, no capture made
+    an empty graph, and the container equals the plain reference's."""
+    import warnings
+
+    from bmh_tpu_torch.models import programs
+    from bmh_tpu_torch.utils import tracing
+    from bmhbench.generators import zipf_text
+
+    data = zipf_text.make(2**31 + 20, 1, text_bytes=32 << 20)[0]
+    programs.clear()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        blob = bt.compress_bytes(data, block_size=1 << 20, device=cuda)
+    assert not [w for w in seen if "Graph is empty" in str(w.message)]
+    programs.reset_stats()
+    out = []
+    prof = tracing.device_profile(
+        lambda: out.append(bt.compress_bytes(data, block_size=1 << 20, device=cuda)))
+    assert out == [blob] and programs.STATS["captures"] == 0
+    stages = [programs.STATS[f"stage_ms.{s}"] for s in programs.STAGES]
+    assert all(ms > 0 for ms in stages), stages
+    assert abs(sum(stages) / prof["device_ms"] - 1) <= 0.10, (stages, prof["device_ms"])
+    assert blob == _reference_blocks(data, 1 << 20)

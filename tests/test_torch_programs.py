@@ -149,6 +149,9 @@ class _FlagRunner:
             state = tuple(body(*state))
         raise AssertionError(f"a loop outran its bound of {max_trips} rounds")
 
+    def stage(self, label):
+        pass
+
 
 def _no_host_reads(fn, *args):
     mode = _NoHostReads()

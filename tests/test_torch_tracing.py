@@ -21,6 +21,7 @@ API = {"api.compress", "api.split", "api.rle1", "api.pack",
        "api.decompress", "api.parse", "api.validate", "api.restore", "api.join"}
 PIPELINE = {"pipeline.group", "pipeline.stage", "compress_assemble", "pipeline.drain"}
 PROGRAMS = {"programs.run", "programs.flag", "programs.wait"}
+STAGES = {"stage.bwt", "stage.mtf", "stage.entropy"}  # run eagerly: spans only
 DISPATCH = ("compress_dispatch_b", "decompress_dispatch_b", "decompress_single_b")
 
 
@@ -73,16 +74,18 @@ def test_off_keeps_nothing_and_allocates_nothing():
 
 def test_every_span_of_the_request_path(spans):
     names = set(spans.counts())
-    assert API | PIPELINE | PROGRAMS <= names
+    assert API | PIPELINE | PROGRAMS | STAGES <= names
     for prefix in DISPATCH:
         assert any(n.startswith(prefix) for n in names), prefix
     # nothing is captured on the CPU: programs.capture shows on a card only
     assert "programs.capture" not in names
-    assert names <= API | PIPELINE | PROGRAMS | {n for n in names if n.startswith(DISPATCH)}
+    assert names <= (API | PIPELINE | PROGRAMS | STAGES
+                     | {n for n in names if n.startswith(DISPATCH)})
     layers = {s[4]: s[3] for s in spans.spans}
     assert {layers[n] for n in API} == {"api"}
     assert {layers[n] for n in PROGRAMS} == {"programs"}
-    assert {layers[n] for n in names - API - PROGRAMS} == {"pipeline"}
+    assert {layers[n] for n in STAGES} == {"device programs"}
+    assert {layers[n] for n in names - API - PROGRAMS - STAGES} == {"pipeline"}
 
 
 def test_one_request_per_api_call(spans):
