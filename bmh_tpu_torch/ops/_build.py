@@ -51,6 +51,7 @@ SOURCES = {
     "ibwt_walk": "ibwt_walk.cu",
     "sort3": "sort3.cu",
     "code_lengths": "code_lengths.cu",
+    "mtf_forward": "mtf_forward.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOGS: dict[str, str] = {}

@@ -2,7 +2,11 @@
 
 Port of bmh_tpu/ops/mtf.py.
 
-* Forward: the code at position i is the number of distinct symbols whose
+* Forward, on a card: kernel K7 (csrc/mtf_forward.cu) in one call for the
+  batch, which runs each lane's list in a warp's registers from an incoming
+  list it rebuilds from per-lane last occurrences; its lane length follows
+  the row length alone, and the codes do not depend on it.
+* Forward, plain version (a CPU tensor): the code at position i is the number of distinct symbols whose
   latest occurrence lies strictly between the previous occurrence of
   data[i] and i.  Each chunk is extended with the 256 symbols of its
   incoming list (least recent first, recovered by a running max of
@@ -17,17 +21,53 @@ Port of bmh_tpu/ops/mtf.py.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import imtf_kernel
+from . import _build, imtf_kernel
 
 ALPHABET = 256
 _NEG_BIG = -(2**30)
 _IMTF_MIN_LANES = 128  # lanes per block of the in-chunk scan (bmh_tpu's TILE)
 _FORWARD_SLICE = 1 << 26  # elements of the (chunks, m, ext) window compare per pass
+_K7_SRC = "mtf_forward.cu"
+_K7_LANE = 1024       # bytes a K7 lane scans, once a row has _K7_MIN_LANES of them
+_K7_MIN_LANES = 128   # lanes a row at least (as mtf_inverse's in-chunk scan)
 
 
 def mtf_forward(data: torch.Tensor, n: torch.Tensor, chunk: int) -> torch.Tensor:
+    """data (B, Nmax) uint8, n (B,) -> (B, Nmax) uint8 codes, zero past n:
+    kernel K7 for a CUDA tensor (one call, no host read), the plain version
+    at MTF chunk `chunk` for a CPU tensor."""
+    if not _build.on_card(data, "mtf_forward"):
+        return mtf_forward_plain(data, n, chunk)
+    if (data.dim() != 2 or data.dtype != torch.uint8 or not data.is_contiguous()
+            or n.shape != data.shape[:1] or n.device != data.device
+            or n.dtype != torch.int64 or not n.is_contiguous()):
+        raise ValueError(f"mtf_forward: needs contiguous uint8 (B, Nmax) data and "
+                         f"contiguous (B,) int64 lengths on its card, got {data.dtype} "
+                         f"{tuple(data.shape)} strides {data.stride()}, n {n.dtype} "
+                         f"{tuple(n.shape)} on {n.device}")
+    b, nmax = data.shape
+    codes = torch.empty((b, nmax), dtype=torch.uint8, device=data.device)
+    if b == 0 or nmax == 0:
+        return codes
+    lanes = max(nmax // _K7_LANE, min(_K7_MIN_LANES, nmax))
+    lane_len = -(-nmax // lanes)
+    lanes = -(-nmax // lane_len)
+    scratch = torch.empty((b * lanes, ALPHABET), dtype=torch.int32, device=data.device)
+    fn = _build.lib(_K7_SRC).bmh_mtf_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.count_launch("mtf_forward")
+    with _build.on_device(data) as stream:
+        _build.check(fn(data.data_ptr(), n.data_ptr(), scratch.data_ptr(),
+                        codes.data_ptr(), b, nmax, lane_len, lanes, stream), "mtf_forward")
+    return codes
+
+
+def mtf_forward_plain(data: torch.Tensor, n: torch.Tensor, chunk: int) -> torch.Tensor:
     """data (B, Nmax) uint8, n (B,) -> (B, Nmax) uint8 codes, zero past n."""
     b, nmax = data.shape
     assert nmax % chunk == 0, "Nmax must be a multiple of the MTF chunk size"

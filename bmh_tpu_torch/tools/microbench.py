@@ -32,6 +32,11 @@ Cases (default all):
            under five two-tier shapes
   code_lengths  the code lengths of 32 histograms with every symbol
            present (256 merges a row): kernel K6 against its plain version
+  mtf_forward  the MTF forward of BWT last columns of the seeded text at
+           the main path's three shapes (32 x 128 KiB, 32 x 1 MiB, and a
+           puts batch: 32 blocks of about 4000 bytes in 128 KiB rows):
+           kernel K7 against its plain version and its bound (n bytes in
+           and n out a row over 3.35 TB/s)
 
 bmh_tpu read book1 of the Calgary corpus for `ibwt` and `sparse`; that file
 is not in the repository, so both read the seeded text of utils/synth.py
@@ -49,6 +54,7 @@ Runs on a card only; without one it raises.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 
@@ -57,7 +63,8 @@ import torch
 
 B, NMAX = 32, 1 << 17
 CASES = ("bitpack", "sort", "lf", "prims", "radix", "compose", "place", "hist",
-         "ibwt", "sparse", "code_lengths")
+         "ibwt", "sparse", "code_lengths", "mtf_forward")
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
 class Timer:
@@ -356,6 +363,49 @@ def bench_code_lengths(t: Timer, seed: int) -> dict:
             "equal": {"code lengths (K6, plain)": torch.equal(*outs)},
             "port_uses": "code_lengths_k6 (ops/huffman.code_lengths_device on a card)",
             "bmh_tpu_uses": "a lax.scan of 256 merge steps (no Pallas kernel)"}
+
+
+def mtf_inputs(seed: int) -> dict:
+    """The MTF forward's inputs on the main path's three shapes, by label:
+    (last, n), the BWT last columns (ops/bwt.bwt_forward_cp) of rows of the
+    seeded text of utils/synth.py.  The puts rows hold 3997-4000 bytes of
+    it each, zero past n, as the compact upload's inflate leaves them."""
+    from ..ops import bwt
+    from ..utils import config, synth
+
+    out = {}
+    for label, nmax, short in (("32x128k", NMAX, False), ("32x1m", 1 << 20, False),
+                               ("puts_32x128k", NMAX, True)):
+        text = synth.smoke_input(seed, text_bytes=B * nmax, random_bytes=0)
+        batch = np.frombuffer(text[: B * nmax], np.uint8).reshape(B, nmax).copy()
+        n = np.full(B, nmax, dtype=np.int64)
+        if short:
+            n = 3997 + np.random.default_rng(seed).integers(0, 4, B)
+            batch[np.arange(nmax)[None, :] >= n[:, None]] = 0
+        nt = torch.from_numpy(n).cuda()
+        last = bwt.bwt_forward_cp(torch.from_numpy(batch).cuda(), nt,
+                                  config.DEFAULT.cursor_stride)[0]
+        out[label] = (last, nt)
+    return out
+
+
+def bench_mtf_forward(t: Timer, seed: int) -> dict:
+    from ..ops import mtf
+    from ..utils import config
+
+    chunk = config.DEFAULT.mtf_chunk
+    ms, bound, equal = {}, {}, {}
+    for label, (last, n) in mtf_inputs(seed).items():
+        forms = {"k7": functools.partial(mtf.mtf_forward, last, n, chunk),
+                 "plain": functools.partial(mtf.mtf_forward_plain, last, n, chunk)}
+        equal[f"codes {label} (K7, plain)"] = torch.equal(*(f() for f in forms.values()))
+        for form, f in forms.items():
+            ms[f"mtf_forward_{form}_{label}"] = t(f)
+        bound[label] = 2 * int(n.sum()) / PEAK_BYTES_PER_S * 1e3
+    return {"ms": ms, "bound_ms": bound, "equal": equal,
+            "port_uses": "mtf_forward_k7 (ops/mtf.mtf_forward on a card)",
+            "bmh_tpu_uses": "jnp ops: a windowed compare over each 128-byte chunk "
+                            "extended by its incoming list (no Pallas kernel)"}
 
 
 BENCHES = {name: globals()[f"bench_{name}"] for name in CASES}

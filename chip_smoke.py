@@ -25,7 +25,10 @@ Phases, each of which raises (non-zero exit) on any mismatch:
               chunks; K3 on all-zero, all-255 and random codes.  K1 and K2
               on bitpacked streams whose codes reach 25 and 28 bits
               (utils/synth.fibonacci_stream), decoded back.  K6 on the
-              histograms of the stream's first 32 blocks.  bound_ms
+              histograms of the stream's first 32 blocks.  K7 on BWT last
+              columns of the seeded text at 32 x 128 KiB and 32 x 1 MiB
+              and on a puts batch (32 blocks of about 4000 bytes in
+              128 KiB rows).  bound_ms
               counts the least work any implementation needs
   4. round    seeded 8 MiB text-like + 1 MiB random stream, compress and
      trip     decompress at 128 KiB on the card, with default knobs, with
@@ -124,6 +127,7 @@ before the last is the kernels JSON; the last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -623,6 +627,7 @@ def kernel_phase(bt, blob: bytes, head: bytes, card: str) -> list[dict]:
         library=lambda: sort_library(*k5),
         bytes=k5_bytes, ops=k5_ops, reps=10, shapes=[list(t.shape) for t in k5]))
     cases.append(code_lengths_case(head))
+    cases.extend(mtf_forward_cases(0))
     return hold(cases)
 
 
@@ -985,6 +990,24 @@ def code_lengths_case(data: bytes) -> dict:
         bytes=2 * nbytes(freqs), ops=b * a * 9 + 4 * int(merges.sum()), reps=20,
         chain=int(merges.max()), chain_unit="merges of the fullest row (one thread runs them)",
         shapes=[list(freqs.shape)])
+
+
+def mtf_forward_cases(seed: int) -> list[dict]:
+    """K7 at the main path's three shapes, for the kernels check: BWT last
+    columns of the seeded text at 32 x 128 KiB and 32 x 1 MiB, and a puts
+    batch of 32 blocks of about 4000 bytes in 128 KiB rows
+    (tools/microbench.mtf_inputs).  The least work: n bytes in and n bytes
+    out a row."""
+    from bmh_tpu_torch.ops import mtf
+    from bmh_tpu_torch.tools import microbench
+
+    return [dict(name="mtf_forward", source="bmh_tpu_torch/csrc/mtf_forward.cu",
+                 replaces="none (bmh_tpu/ops/mtf.py mtf_forward is jnp ops)",
+                 kernel=functools.partial(mtf.mtf_forward, last, n, 128),
+                 plain=functools.partial(mtf.mtf_forward_plain, last, n, 128),
+                 bytes=2 * int(n.sum()), ops=0, reps=20, detail=label,
+                 shapes=[list(last.shape)])
+            for label, (last, n) in microbench.mtf_inputs(seed).items()]
 
 
 def huffman_graph(bt, data: bytes, card: str) -> None:

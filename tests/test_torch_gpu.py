@@ -1,4 +1,4 @@
-"""bmh_tpu_torch on a CUDA card: each kernel (K1-K6) against its plain
+"""bmh_tpu_torch on a CUDA card: each kernel (K1-K7) against its plain
 PyTorch version, and the codec round trip against its CPU run.
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -16,6 +16,7 @@ from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.ops import decode_kernels as dk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
+from bmh_tpu_torch.ops import mtf as tmtf
 from bmh_tpu_torch.utils import config, synth
 
 pytestmark = pytest.mark.gpu
@@ -294,6 +295,17 @@ def test_wrappers_reject_bad_inputs(cuda):
                 torch.ones((4, 257), dtype=torch.int32, device=cuda)):
         with pytest.raises(ValueError):
             thuf.code_lengths_device(bad)
+    data = torch.zeros((2, 4096), dtype=torch.uint8, device=cuda)
+    n = torch.full((2,), 4096, dtype=torch.int64, device=cuda)
+    for bad_data, bad_n in ((data.to(torch.int32), n),        # dtype
+                            (data[0], n[:1]),                 # one dimension
+                            (data[:, ::2], n),                # not contiguous
+                            (data, n[:1]),                    # n's shape
+                            (data, n.float()),                # n's dtype
+                            (data, n.repeat(2)[::2]),         # n not contiguous
+                            (data, n.cpu())):                 # n off the card
+        with pytest.raises(ValueError, match="mtf_forward"):
+            tmtf.mtf_forward(bad_data, bad_n, 128)
 
 
 CODE_LENGTH_CASES = ["edges", "one", "two", "all_257", "fibonacci", "random", "empty",
@@ -340,6 +352,95 @@ def test_code_lengths_kernel_in_a_captured_program(cuda):
         torch.cuda.synchronize()
         assert torch.equal(prog.out, eager)
         assert _build.LAUNCHES["code_lengths"] == k + 1
+
+
+MTF_CASES = ["random", "one_symbol", "runs", "bwt_text", "all_256", "n_edges", "n_odd",
+             "rows_2p20", "puts"]
+
+
+def _mtf_case(case: str):
+    """(data (B, Nmax) uint8, n (B,)) on the host for one K7 case."""
+    from bmh_tpu_torch.ops import bwt
+
+    rng = np.random.default_rng(7)
+    if case == "random":
+        data = rng.integers(0, 256, (8, 1 << 16))
+    elif case == "one_symbol":
+        data = np.full((4, 1 << 16), 0x41)
+    elif case == "runs":  # runs of 1 to 3000 bytes, a few long enough to span lanes
+        sym = rng.integers(0, 256, 2000)
+        data = np.repeat(sym, rng.integers(1, 3000, 2000))[: 4 << 17].reshape(4, 1 << 17)
+    elif case == "bwt_text":  # BWT last columns of the benchmark's stream
+        text = synth.smoke_input(0, text_bytes=8 << 17, random_bytes=0)
+        rows = torch.from_numpy(np.frombuffer(text[: 8 << 17], np.uint8).reshape(8, 1 << 17))
+        n = torch.full((8,), 1 << 17, dtype=torch.int64)
+        data = bwt.bwt_forward_cp(rows.cuda(), n.cuda(), 4096)[0].cpu().numpy()
+    elif case == "all_256":  # every symbol in every 128 bytes, lanes of any length
+        data = np.concatenate([rng.permutation(256) for _ in range(4 * 512)])
+        data = data.reshape(4, 1 << 17)
+    elif case == "rows_2p20":
+        data = np.frombuffer(synth.smoke_input(1, text_bytes=32 << 20, random_bytes=0)
+                             [: 32 << 20], np.uint8).reshape(32, 1 << 20)
+    else:  # rows with garbage past n, which the codes must not see
+        data = rng.integers(0, 256, (32 if case == "puts" else 6, 1 << 17))
+        data[:, ::3] %= 5
+    b, nmax = data.shape
+    n = {"n_edges": [0, 1, nmax, 1, 0, nmax],
+         "n_odd": [1023, 1025, 77777, nmax - 1, 3, 65537],
+         "puts": rng.integers(3997, 4001, b)}.get(case, [nmax] * b)
+    return np.ascontiguousarray(data, dtype=np.uint8), np.asarray(n, dtype=np.int64)
+
+
+@pytest.mark.parametrize("case", MTF_CASES)
+def test_mtf_forward_kernel_matches_plain(cuda, case):
+    """K7 against the plain version, byte for byte, in one call: random
+    bytes, one symbol, long runs, BWT last columns of text, every symbol in
+    every chunk, rows of n = 0, 1 and Nmax, n on no lane boundary with
+    garbage past it, a 32 x 2^20 batch, and a puts batch (32 rows of
+    131,072 with n near 4000)."""
+    data, n = _mtf_case(case)
+    d, nt = torch.from_numpy(data).to(cuda), torch.from_numpy(n).to(cuda)
+    _build.reset_launches()
+    got = tmtf.mtf_forward(d, nt, 128)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mtf_forward"] == 1
+    assert got.dtype == torch.uint8 and got.shape == d.shape
+    want = tmtf.mtf_forward_plain(d, nt, 128)
+    assert torch.equal(got, want)
+    if case == "one_symbol":
+        assert int(got[:, 1:].max()) == 0 and int(got[0, 0]) == 0x41
+    if case == "n_edges":
+        assert not got[0].any() and not got[4].any()
+
+
+@pytest.mark.parametrize("hard", [False, True], ids=["sparse", "full_rounds"])
+def test_mtf_forward_kernel_in_a_captured_compress_program(cuda, monkeypatch, hard):
+    """Both compress programs captured with K7 inside: every replay equals
+    the eager run, adds one mtf_forward launch, and the eager run equals the
+    same program with the plain MTF forward."""
+    import functools
+
+    from bmh_tpu_torch.models import programs
+
+    _, (batch, ns), _, pipeline = _program_inputs(4)
+    fn = functools.partial(pipeline.compress_program, stride=4096, hard=hard, b_pad=8)
+    # device inputs: no pinned staging buffer in flight at the capture
+    inputs = (torch.from_numpy(batch).to(cuda), torch.from_numpy(ns).to(cuda))
+    torch.cuda.synchronize()
+    prog = programs._Program(programs._cache_for(cuda), fn, inputs)
+    prog.load(inputs)
+    prog.warm_up()
+    prog.capture()
+    eager = fn(*inputs)
+    _build.reset_launches()
+    for k in range(3):
+        prog.out.zero_()
+        prog.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(prog.out, eager)
+        assert _build.LAUNCHES["mtf_forward"] == k + 1
+    monkeypatch.setattr(tmtf, "mtf_forward", tmtf.mtf_forward_plain)
+    assert torch.equal(fn(*inputs), eager)
 
 
 def test_decode_on_side_streams_while_another_batch_runs(cuda):
@@ -622,6 +723,7 @@ def test_programs_replay_the_main_path(cuda, monkeypatch, sort3):
                                                  "gap_decode_phase_b",
                                                  "imtf_chunks", "ibwt_walk"))
     assert _build.LAUNCHES["code_lengths"] == 1  # one compress batch
+    assert _build.LAUNCHES["mtf_forward"] == 1
     assert (_build.LAUNCHES["sort3"] > 0) == sort3
 
 

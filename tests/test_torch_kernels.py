@@ -337,13 +337,14 @@ def test_compose_plain_matches_jax_compose(nmax):
 
 KERNEL_SOURCES = {"gap_decode_phase_a": "gap_decode.cu", "gap_decode_phase_b": "gap_decode.cu",
                   "imtf_chunks": "imtf.cu", "ibwt_walk": "ibwt_walk.cu",
-                  "sort3": "sort3.cu", "code_lengths": "code_lengths.cu"}
+                  "sort3": "sort3.cu", "code_lengths": "code_lengths.cu",
+                  "mtf_forward": "mtf_forward.cu"}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_SOURCES))
 def test_kernel_sources_exist(name):
     """Each kernel's launch count and source under csrc/, which the card
-    builds (K6: code_lengths.cu)."""
+    builds (K6: code_lengths.cu, K7: mtf_forward.cu)."""
     assert set(_build.SOURCES) == set(KERNEL_SOURCES) == set(_build.LAUNCHES)
     assert _build.SOURCES[name] == KERNEL_SOURCES[name]
     assert (_build.CSRC / KERNEL_SOURCES[name]).is_file()

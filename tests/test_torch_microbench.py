@@ -19,7 +19,7 @@ RENAMED = {"cumsum_4M_u32": "cumsum_4M"}
 def test_case_list():
     assert microbench.CASES == ("bitpack", "sort", "lf", "prims", "radix",
                                 "compose", "place", "hist", "ibwt", "sparse",
-                                "code_lengths")
+                                "code_lengths", "mtf_forward")
     assert set(microbench.BENCHES) == set(microbench.CASES)
     assert all(callable(f) for f in microbench.BENCHES.values())
 

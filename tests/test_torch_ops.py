@@ -16,6 +16,7 @@ from bmh_tpu.ops import mtf as jmtf
 from bmh_tpu.ops import rle as jrle
 from bmh_tpu.utils import container as jcont
 from bmh_tpu_torch.models import pipeline as tpipe
+from bmh_tpu_torch.ops import _build
 from bmh_tpu_torch.ops import bwt as tbwt
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import mtf as tmtf
@@ -121,18 +122,33 @@ def test_bwt_forward_matches_jax(kind):
         assert not last[i, jl.size:].any() and int(shift[i]) == js
 
 
-def test_mtf_forward_and_rle0_match_jax(rows):
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_mtf_forward_and_rle0_match_jax(rows, chunk):
+    """On CPU tensors mtf_forward runs the plain version at the given MTF
+    chunk (no K7 launch), equal to bmh_tpu's codes."""
     batch, ns = rows
-    codes = tmtf.mtf_forward(torch.from_numpy(batch), torch.from_numpy(ns), 128)
+    before = _build.LAUNCHES["mtf_forward"]
+    codes = tmtf.mtf_forward(torch.from_numpy(batch), torch.from_numpy(ns), chunk)
+    assert _build.LAUNCHES["mtf_forward"] == before
+    assert torch.equal(codes, tmtf.mtf_forward_plain(torch.from_numpy(batch),
+                                                     torch.from_numpy(ns), chunk))
     syms, m = trle.rle0_encode(codes, torch.from_numpy(ns))
     fm = jax.jit(jmtf.mtf_forward, static_argnums=2)
     fr = jax.jit(jrle.rle0_encode)
     for i in range(len(ns)):
-        jc = fm(jnp.asarray(batch[i]), jnp.int32(ns[i]), 128)
+        jc = fm(jnp.asarray(batch[i]), jnp.int32(ns[i]), chunk)
         np.testing.assert_array_equal(codes[i].numpy(), np.asarray(jc))
         js, jm = fr(jc, jnp.int32(ns[i]))
         assert int(m[i]) == int(jm)
         np.testing.assert_array_equal(syms[i].numpy(), np.asarray(js))
+
+
+def test_mtf_forward_refuses_other_devices():
+    """Neither a CUDA nor a CPU tensor: the wrapper raises before any route
+    runs."""
+    data = torch.zeros((2, 256), dtype=torch.uint8, device="meta")
+    with pytest.raises(RuntimeError, match="mtf_forward: unsupported device meta"):
+        tmtf.mtf_forward(data, torch.ones(2, dtype=torch.int64, device="meta"), 128)
 
 
 def test_mtf_inverse_matches_jax(rows):
