@@ -31,8 +31,8 @@
 //      a + t is born at step t; its children point to it.  (A version that
 //      kept the heads' weights in registers and loaded only the next head
 //      of the queue it took from gave suboptimal lengths when built with
-//      ptxas -O3 of CUDA 12.8, and right ones at -O0: chip_smoke.py and
-//      the card tests hold this one to the plain version.)
+//      ptxas -O3 of CUDA 12.8, and right ones at -O0: the card tests
+//      hold this one to the plain version.)
 //   4. Depths by pointer doubling over the 513 parent links, 9 rounds as in
 //      the plain version: each round every thread reads its nodes' links
 //      and counts, the block syncs, then writes them.

@@ -646,7 +646,7 @@ def _run_window(batches, drain, depth: int) -> None:
     """bmh_tpu's bounded in-flight window.
 
     `batches` yields (key, parts), a part being (device, label, dispatch);
-    dispatch(device) returns (a _HostCopy, anything).  Batches are
+    dispatch(device) returns (a programs.HostCopy, anything).  Batches are
     dispatched in order on the calling thread, and while more than `depth`
     wait, the oldest is drained by drain(key, [its parts' results]); the
     rest are drained in order at the end.  If a dispatch or a drain raises,

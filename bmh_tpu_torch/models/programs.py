@@ -71,10 +71,12 @@ from ..utils.tracing import annotate
 
 MAX_ENTRIES = 128
 # every knob a program reads, in its key (bmh_tpu's keys: shapes plus
-# _tier_key, the decode's place_mode; and lf2, which bmh_tpu forgets)
+# _tier_key and the decode's place_mode, which the port does not read; and
+# lf2, which bmh_tpu forgets).  A knob that only the host reads (min_bucket,
+# through the nmax in the key) or that nothing reads (utils/config.py)
+# stays out: flipping it would capture the same graphs again
 KNOBS = ("mtf_chunk", "imtf_chunk", "full_rounds", "sparse_cap_div",
-         "tier1_rounds", "tier2_div", "pallas_sort", "pallas_decode",
-         "pallas_imtf", "lf2", "decode_place", "min_bucket", "debug_sparse")
+         "tier1_rounds", "tier2_div", "pallas_sort", "lf2")
 
 # the stages that the compress programs mark (models/pipeline.py)
 STAGES = ("bwt", "mtf", "entropy")
@@ -285,8 +287,7 @@ class _Program:
         Returns the rounds each loop ran.  Given `trips` (what an earlier
         replay of the same inputs returned), the loops run that many rounds
         without reading a flag: what a loop on the card (a conditional
-        WHILE node) would save, measured (chip_smoke.py `[graphs]`); it is
-        right only for those inputs.  A program with stage marks records
+        WHILE node) would save; it is right only for those inputs.  A program with stage marks records
         a timing event before the first step of each stage and one after
         the last step, into `marks` as (label, event)."""
         host = torch.empty(1, dtype=torch.int32, pin_memory=True)

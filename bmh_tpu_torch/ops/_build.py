@@ -6,8 +6,7 @@ interface under bmh_tpu_torch/build/, at first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 The library's file name carries a hash of the source and the flags, so an
-edited source never loads a stale build.  `build_all` starts one nvcc per
-source at once and waits for all of them.  Every C entry point launches on
+edited source never loads a stale build.  Every C entry point launches on
 the stream it is given and returns cudaGetLastError(); `check` raises on a
 non-zero code.
 
@@ -54,7 +53,6 @@ SOURCES = {
     "mtf_forward": "mtf_forward.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
-BUILD_LOGS: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -109,54 +107,33 @@ def _so_path(src: str) -> Path:
     return BUILD / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def _start(src: str):
-    """Start nvcc for `src` unless its library exists; returns the process
-    and its output paths, or None."""
+def _compile(src: str) -> None:
+    """Build `src`'s library unless it exists: nvcc into a temporary file,
+    renamed into place once whole."""
     so = _so_path(src)
     if so.exists():
-        return None
+        return
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, so
-
-
-def _finish(src: str, started) -> None:
-    proc, tmp, so = started
-    out, _ = proc.communicate(timeout=600)
-    BUILD_LOGS[src] = out
+    proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=600)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}")
     os.replace(tmp, so)
-
-
-def build_all() -> dict[str, str]:
-    """Compile every kernel source in parallel; returns nvcc's output per
-    source (the -Xptxas -v register/shared-memory/spill report)."""
-    srcs = sorted(set(SOURCES.values()))
-    started = {src: _start(src) for src in srcs}
-    for src, st in started.items():
-        if st is not None:
-            _finish(src, st)
-    return {src: BUILD_LOGS.get(src, "(already built)") for src in srcs}
 
 
 def lib(src: str) -> ctypes.CDLL:
     """The loaded library of one source, building it on first use (one
     thread builds; the others wait for it).  Two processes that both miss
     the library build it twice, each into its own temporary file, and the
-    rename leaves one whole library: call `build_all` before starting
-    workers to build once."""
+    rename leaves one whole library."""
     lib_ = _libs.get(src)
     if lib_ is None:
         with _build_lock:
             if src not in _libs:
-                st = _start(src)
-                if st is not None:
-                    _finish(src, st)
+                _compile(src)
                 _libs[src] = ctypes.CDLL(str(_so_path(src)))
             lib_ = _libs[src]
     return lib_

@@ -16,6 +16,8 @@ Cases (default all):
   sort     a doubling round's sort: two stable passes (3 arrays, 2 keys),
            one packed int64 key stable and unstable (the port's
            ops/bwt._stable_sort3), one packed array alone, and kernel K5
+           with its bound (each triple read and written once); the stable
+           packed sort is the library call K5 replaces
   lf       the LF map: a stable sort of the byte key with the index as
            payload, the port's packed int64 sort, and a packed int32 one
   prims    cumsum (int64 and int32), random gather and scatter, 4M each
@@ -32,11 +34,17 @@ Cases (default all):
            under five two-tier shapes
   code_lengths  the code lengths of 32 histograms with every symbol
            present (256 merges a row): kernel K6 against its plain version
+           and its bound (the histograms read and the lengths written once)
   mtf_forward  the MTF forward of BWT last columns of the seeded text at
            the main path's three shapes (32 x 128 KiB, 32 x 1 MiB, and a
            puts batch: 32 blocks of about 4000 bytes in 128 KiB rows):
            kernel K7 against its plain version and its bound (n bytes in
            and n out a row over 3.35 TB/s)
+  decode   kernels K1-K4 (phase_a, phase_b, imtf_chunks, ibwt_walk) on the
+           arguments a real decode of 32 blocks of 128 KiB of the seeded
+           text gave them, each against its plain version (K4's: one row
+           a step) and its bound (its inputs read once and its outputs
+           written once, over 3.35 TB/s); raises if one differs
 
 bmh_tpu read book1 of the Calgary corpus for `ibwt` and `sparse`; that file
 is not in the repository, so both read the seeded text of utils/synth.py
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib
 import json
 import statistics
 
@@ -63,7 +72,7 @@ import torch
 
 B, NMAX = 32, 1 << 17
 CASES = ("bitpack", "sort", "lf", "prims", "radix", "compose", "place", "hist",
-         "ibwt", "sparse", "code_lengths", "mtf_forward")
+         "ibwt", "sparse", "code_lengths", "mtf_forward", "decode")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
@@ -156,6 +165,9 @@ def bench_sort(t: Timer, seed: int) -> dict:
         "equal": {"stable orders (two passes, packed, K5)": all(
             torch.equal(out["sort2_1key_stable"], v) for v in out.values()),
             "unstable keys": torch.equal((unstable[0] << 32) + unstable[1], stable_keys)},
+        # K5's least work: each triple's 12 bytes read and written once
+        "bound_ms": {"sort3_k5": 24 * B * NMAX / PEAK_BYTES_PER_S * 1e3},
+        "library": {"sort3_k5": "sort2_1key_stable (the one PyTorch sort K5 replaces)"},
         "port_uses": {"doubling rounds": "sort2_1key_unstable",
                       "finish, LF": "sort2_1key_stable",
                       "BMH_PALLAS_SORT=1, rows in 2^10..2^18": "sort3_k5"},
@@ -361,6 +373,8 @@ def bench_code_lengths(t: Timer, seed: int) -> dict:
     outs = [f() for f in forms.values()]
     return {"ms": {k: t(f) for k, f in forms.items()},
             "equal": {"code lengths (K6, plain)": torch.equal(*outs)},
+            # the histograms read and the lengths written once, int64 each
+            "bound_ms": {"code_lengths_k6": 2 * freqs.numel() * 8 / PEAK_BYTES_PER_S * 1e3},
             "port_uses": "code_lengths_k6 (ops/huffman.code_lengths_device on a card)",
             "bmh_tpu_uses": "a lax.scan of 256 merge steps (no Pallas kernel)"}
 
@@ -406,6 +420,118 @@ def bench_mtf_forward(t: Timer, seed: int) -> dict:
             "port_uses": "mtf_forward_k7 (ops/mtf.mtf_forward on a card)",
             "bmh_tpu_uses": "jnp ops: a windowed compare over each 128-byte chunk "
                             "extended by its incoming list (no Pallas kernel)"}
+
+
+# kernel (its _build.LAUNCHES name) -> (label, module under ops/, wrapper,
+# plain version)
+KERNELS = {
+    "gap_decode_phase_a": ("K1", "decode_kernels", "phase_a", "phase_a_plain"),
+    "gap_decode_phase_b": ("K2", "decode_kernels", "phase_b", "phase_b_plain"),
+    "imtf_chunks": ("K3", "imtf_kernel", "imtf_chunks", "imtf_chunks_plain"),
+    "ibwt_walk": ("K4", "ibwt_kernel", "ibwt_walk", "ibwt_walk_plain"),
+    "sort3": ("K5", "sort_kernel", "sort3", "sort3_plain"),
+    "code_lengths": ("K6", "huffman", "code_lengths_device", "code_lengths_plain"),
+    "mtf_forward": ("K7", "mtf", "mtf_forward", "mtf_forward_plain"),
+}
+DECODE = ("gap_decode_phase_a", "gap_decode_phase_b", "imtf_chunks", "ibwt_walk")
+
+
+def _module(name: str):
+    return importlib.import_module(f"..ops.{KERNELS[name][1]}", __package__)
+
+
+def capture_kernel_inputs(fn, names=DECODE) -> tuple[dict, object]:
+    """fn() with the wrappers of the named kernels recording the arguments
+    (cloned) of their first call, so that each kernel runs at the shapes the
+    path gave it (K4's include the hop the path chose).  The program cache
+    is emptied first: a replay runs no Python, and the next call's warm-up
+    hands the wrappers their real inputs.  Returns (the arguments by
+    kernel, fn's result)."""
+    from ..models import programs
+
+    captured: dict = {}
+    patched = [(_module(name), KERNELS[name][2], name) for name in names]
+    originals = [getattr(mod, attr) for mod, attr, _ in patched]
+
+    def recorder(name, orig):
+        def rec(*args):
+            if name not in captured:
+                captured[name] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return orig(*args)
+        return rec
+
+    programs.clear()
+    try:
+        for (mod, attr, name), orig in zip(patched, originals):
+            setattr(mod, attr, recorder(name, orig))
+        result = fn()
+    finally:
+        for (mod, attr, _), orig in zip(patched, originals):
+            setattr(mod, attr, orig)
+    torch.cuda.synchronize()
+    return captured, result
+
+
+def kernel_and_plain(name: str, args) -> tuple:
+    """The kernel and its plain version as calls on the captured arguments
+    (K4's plain walk goes one row a step, whatever hop the path chose)."""
+    _, _, wrapper, plain = KERNELS[name]
+    mod = _module(name)
+    plain_args = list(args[:3]) + [1] if name == "ibwt_walk" else args
+    return (functools.partial(getattr(mod, wrapper), *args),
+            functools.partial(getattr(mod, plain), *plain_args))
+
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def hold(captured: dict) -> dict:
+    """Each captured kernel against its plain version on the same arguments,
+    exactly.  Raises on the first that differs; returns each kernel's
+    outputs."""
+    outs = {}
+    for name, args in captured.items():
+        kernel, plain = kernel_and_plain(name, args)
+        got, want = _as_tuple(kernel()), _as_tuple(plain())
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
+            raise RuntimeError(f"{KERNELS[name][0]} {name} at {shapes} differs "
+                               f"from its plain version")
+        outs[name] = got
+    return outs
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def bench_decode(t: Timer, seed: int) -> dict:
+    from .. import api
+    from ..utils import synth
+
+    text = synth.smoke_input(seed, text_bytes=B * NMAX, random_bytes=0)
+    blob = api.compress_bytes(text, block_size=NMAX, device="cuda")
+    cap, out = capture_kernel_inputs(lambda: api.decompress_bytes(blob, device="cuda"))
+    if out != text:
+        raise RuntimeError("the decode batch did not give the text back")
+    outs = hold(cap)
+    ms, bound, equal, shapes = {}, {}, {}, {}
+    for name, args in cap.items():
+        k, _, wrapper, _ = KERNELS[name]
+        kernel, plain = kernel_and_plain(name, args)
+        equal[f"{wrapper} ({k}, plain)"] = True  # hold() raised otherwise
+        ms[f"{wrapper}_{k.lower()}"] = t(kernel)
+        ms[f"{wrapper}_plain"] = t(plain)
+        bound[wrapper] = (_nbytes(args) + _nbytes(outs[name])) / PEAK_BYTES_PER_S * 1e3
+        shapes[wrapper] = [list(a.shape) for a in args if torch.is_tensor(a)]
+    _, _, steps, hop = cap["ibwt_walk"]
+    return {"ms": ms, "bound_ms": bound, "equal": equal, "shapes": shapes,
+            "ibwt_walk": {"steps": steps, "hop": hop},
+            "port_uses": "the kernels K1-K4 on a card (ops/decode_kernels, "
+                         "ops/imtf_kernel, ops/ibwt_kernel)",
+            "bmh_tpu_uses": "Pallas phase_a, phase_b and imtf_chunks; the LF walk "
+                            "as an XLA scan (Mosaic rejects its Pallas kernel)"}
 
 
 BENCHES = {name: globals()[f"bench_{name}"] for name in CASES}

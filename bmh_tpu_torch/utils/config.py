@@ -15,9 +15,12 @@ every block size, where bmh_tpu packs two-step LF² entries for blocks <=
 `inflight` (BMH_INFLIGHT, 4) bounds the batches between dispatch and drain
 in models/pipeline.TorchBackend, and `devices` (BMH_DEVICES, 0 = all) caps
 the devices a TorchBackend keeps and so fans out over, as in bmh_tpu.
-The other TPU knobs (pallas_decode, pallas_imtf, decode_place) are
-accepted and validated but not read: the decode kernels always run on a
-card, and decode_place selects machinery the port does not have.
+The other TPU knobs (pallas_decode, pallas_imtf, decode_place) and
+debug_sparse are accepted and validated but not read: the decode kernels
+always run on a card, decode_place selects machinery the port does not
+have, and the port has no sparse debug path.  min_bucket is read on the
+host only (models/pipeline._bucket, the smallest padded row).  None of
+these five is in the program key (models/programs.KNOBS).
 """
 
 from __future__ import annotations

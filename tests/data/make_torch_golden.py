@@ -1,4 +1,4 @@
-"""Record bmh_tpu's container digests for chip_smoke.py's input stream.
+"""Record bmh_tpu's container digests for the card tests' input streams.
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py [--seed 0]
         [--cases main,blocks_1mib,blocks_100000,stride_64,blocks_2mib,
@@ -7,8 +7,9 @@
 Compresses bmh_tpu_torch.utils.synth.smoke_input(seed) (and the other
 seeded workloads of utils/synth.py) with bmh_tpu (the reference package,
 on the CPU) and writes the input's and the containers' SHA-256 and sizes
-to tests/data/torch_golden.json, which chip_smoke.py holds the port's
-containers to on the GPU:
+to tests/data/torch_golden.json, which
+tests/test_torch_gpu.py::test_card_containers_equal_bmh_tpus_golden holds
+the port's containers to on the GPU:
 
   main           the whole stream at 128 KiB blocks (top-level keys);
   blocks_1mib    its first 2 MiB at 1 MiB blocks;

@@ -1,11 +1,22 @@
 """bmh_tpu_torch on a CUDA card: each kernel (K1-K7) against its plain
-PyTorch version, and the codec round trip against its CPU run.
+PyTorch version, the codec round trip against its CPU run, and the card's
+containers against bmh_tpu's recorded digests (tests/data/torch_golden.json).
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 (--noconftest: tests/conftest.py imports jax, which the machine with the
 card does not need.)  Without a card every test here skips.
 """
+
+import hashlib
+import itertools
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,9 +28,13 @@ from bmh_tpu_torch.ops import decode_kernels as dk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
 from bmh_tpu_torch.ops import mtf as tmtf
+from bmh_tpu_torch.tools import microbench
 from bmh_tpu_torch.utils import config, synth
 
 pytestmark = pytest.mark.gpu
+
+ROOT = Path(__file__).resolve().parents[1]
+GOLDEN = json.loads((ROOT / "tests" / "data" / "torch_golden.json").read_text())
 
 
 @pytest.fixture
@@ -48,22 +63,99 @@ def test_roundtrip_matches_cpu(cuda):
     assert all(v > 0 for k, v in _build.LAUNCHES.items() if k != "sort3")
 
 
-def test_gap_decode_kernels_match_plain(cuda):
-    blob = bt.compress_bytes(_text(200000, 2), block_size=65536, device=cuda)
-    infos = [dict(i) for i in bt.api._parse(blob)[0]]
+# case -> (entry of torch_golden.json, knobs): the 9 MiB stream under three
+# sets of knobs, each recorded case under its own block size and stride,
+# and the 2 MiB blocks once more with K5 on (its rows are above K5's 2^18,
+# so only a sparse set inside the envelope would reach it)
+GOLDEN_CASES = {"main": ("main", {}), "main-pallas_sort": ("main", {"pallas_sort": True}),
+                "main-lf2_off": ("main", {"lf2": False}),
+                **{name: (name, {}) for name in GOLDEN["cases"]},
+                "blocks_2mib-pallas_sort": ("blocks_2mib", {"pallas_sort": True})}
+
+
+@pytest.mark.parametrize("case", list(GOLDEN_CASES))
+def test_card_containers_equal_bmh_tpus_golden(cuda, monkeypatch, case):
+    """The card's containers carry bmh_tpu's SHA-256 and length, as
+    tests/data/make_torch_golden.py recorded them with bmh_tpu on the CPU,
+    and decode back bit-exact on the card.  The small files' case is the
+    first files' containers back to back, from one compress_many(uniform)
+    call and from a compress_bytes call a file."""
+    name, knobs = GOLDEN_CASES[case]
+    want = GOLDEN if name == "main" else GOLDEN["cases"][name]
+    source, bs = want.get("source", "smoke_input"), want["block_size"]
+    monkeypatch.setattr(config.DEFAULT, "cursor_stride", want.get("cursor_stride", 4096))
+    for knob, value in knobs.items():
+        monkeypatch.setattr(config.DEFAULT, knob, value)
+    made = getattr(synth, source)(GOLDEN["seed"])
+    _build.reset_launches()
+    if source == "small_files":
+        files = made[: list(itertools.accumulate(map(len, made))).index(want["input_bytes"]) + 1]
+        data = b"".join(files)
+        blobs = bt.compress_many(files, block_size=bs, uniform=True, device=cuda)
+        blob = b"".join(blobs)
+    else:
+        data = made[: want["input_bytes"]]
+        blob = bt.compress_bytes(data, block_size=bs, device=cuda)
+    assert hashlib.sha256(data).hexdigest() == want["input_sha256"]
+    assert len(blob) == want["container_bytes"]
+    assert hashlib.sha256(blob).hexdigest() == want["container_sha256"]
+    if case == "main-pallas_sort":
+        assert _build.LAUNCHES["sort3"] > 0
+    if source == "small_files":
+        assert bt.decompress_many(blobs, uniform=True, device=cuda) == files
+        assert [bt.compress_bytes(f, block_size=bs, device=cuda) for f in files] == blobs
+    else:
+        assert bt.decompress_bytes(blob, device=cuda) == data
+
+
+def _fibonacci_block(k: int, cuda) -> tuple[dict, torch.Tensor]:
+    """A block whose payload is the k symbols of synth.fibonacci_stream
+    (a (k - 1)-bit longest code), code lengths, codes and bitpack made on
+    the card by the port's ops; and the symbol stream."""
+    stream = torch.from_numpy(synth.fibonacci_stream(k, 0)).to(cuda)
+    m = stream.numel()
+    syms = torch.zeros((1, 1 << (m - 1).bit_length()), dtype=torch.int64, device=cuda)
+    syms[0, :m] = stream
+    mt = torch.tensor([m], device=cuda)
+    lens = thuf.code_lengths_device(thuf.histogram(syms, mt, 257))
+    assert int(lens.max()) == k - 1
+    words, bits = thuf.encode_bitpack(syms, mt, lens, thuf.canonical_codes_device(lens))
+    payload = words[0, : (int(bits) + 31) // 32].cpu().numpy().astype(">u4").tobytes()
+    return {"payload": payload[: (int(bits) + 7) // 8], "orig_len": m, "rle_len": m,
+            "lens": lens[0].cpu().numpy().astype(np.uint8), "shift": 0}, stream
+
+
+@pytest.mark.parametrize("case", ["text", "fibonacci_26", "fibonacci_29"])
+def test_gap_decode_kernels_match_plain(cuda, case):
+    """K1 and K2 against their plain versions on a staged batch: text
+    blocks, and bitpacked streams whose codes reach 25 and 28 bits, which
+    the flat decode must also give back."""
     from bmh_tpu_torch.models import pipeline
 
-    (words, lens_all, seg_start, _, seg_id, _, _, _, maxl) = \
+    if case == "text":
+        blob = bt.compress_bytes(_text(200000, 2), block_size=65536, device=cuda)
+        infos = [dict(i) for i in bt.api._parse(blob)[0]]
+    else:
+        block, stream = _fibonacci_block(int(case.split("_")[1]), cuda)
+        infos = [block]
+    (words, lens_all, seg_start, seg_start_idx, seg_id, ms, _, _, maxl) = \
         pipeline._stage_flat_np(infos, list(range(len(infos))), 512)
-    count, _ = thuf.decode_tables_device(torch.from_numpy(lens_all).to(cuda))
-    count_t = count[torch.from_numpy(seg_id).to(cuda)].T.to(torch.int32).contiguous()
-    wext = thuf.words_ext(torch.from_numpy(words.view(np.int32)).to(cuda), 512)
+    wext, count_t, sym_b = pipeline._tables(
+        torch.from_numpy(words.view(np.int32)).to(cuda),
+        torch.from_numpy(lens_all).to(cuda), torch.from_numpy(seg_id).to(cuda), 512)
     cnt, ex = dk.phase_a(wext, count_t, 512, maxl)
     cnt_p, ex_p = dk.phase_a_plain(wext, count_t, 512, maxl)
     assert torch.equal(cnt, cnt_p) and torch.equal(ex, ex_p)
     entry = torch.randint(0, 32, (wext.shape[1],), device=cuda, dtype=torch.int32)
     assert torch.equal(dk.phase_b(wext, count_t, entry, 512, maxl),
                        dk.phase_b_plain(wext, count_t, entry, 512, maxl))
+    if case != "text":
+        m = stream.numel()
+        out = thuf.gap_decode_flat(
+            wext, count_t, *(torch.from_numpy(x).to(cuda)
+                             for x in (seg_start, seg_start_idx, seg_id)),
+            sym_b, torch.from_numpy(ms).to(cuda), 1 << (m - 1).bit_length(), 512, maxl)
+        assert torch.equal(out[0, :m], stream)
 
 
 def test_imtf_kernel_matches_plain(cuda):
@@ -417,7 +509,8 @@ def test_mtf_forward_kernel_matches_plain(cuda, case):
 def test_mtf_forward_kernel_in_a_captured_compress_program(cuda, monkeypatch, hard):
     """Both compress programs captured with K7 inside: every replay equals
     the eager run, adds one mtf_forward launch, and the eager run equals the
-    same program with the plain MTF forward."""
+    same program with the plain MTF forward and the other program's run
+    (the full rounds and the sparse refinement write the same blocks)."""
     import functools
 
     from bmh_tpu_torch.models import programs
@@ -439,6 +532,8 @@ def test_mtf_forward_kernel_in_a_captured_compress_program(cuda, monkeypatch, ha
         torch.cuda.synchronize()
         assert torch.equal(prog.out, eager)
         assert _build.LAUNCHES["mtf_forward"] == k + 1
+    other = functools.partial(pipeline.compress_program, stride=4096, hard=not hard, b_pad=8)
+    assert torch.equal(other(*inputs), eager)
     monkeypatch.setattr(tmtf, "mtf_forward", tmtf.mtf_forward_plain)
     assert torch.equal(fn(*inputs), eager)
 
@@ -479,14 +574,34 @@ def test_decode_on_side_streams_while_another_batch_runs(cuda):
         assert all(np.array_equal(x, y) for x, y in zip(g, w))
 
 
+def _lying_rle_len(blob: bytes, delta: int) -> bytes:
+    """The container with block 0 re-packed at rle_len + delta, its CRC
+    made anew: only the decoded total can catch it."""
+    from bmh_tpu_torch.utils import container as C
+
+    bs, total, raws = C.unpack_file(blob)
+    (orig_len, shift, lens, present, cps, rle_len, payload,
+     pre_len) = C.unpack_block(raws[0])
+    raws[0] = C.pack_block(orig_len, shift, lens, present, payload, cps=cps,
+                           rle_len=rle_len + delta, pre_len=pre_len)
+    return C.pack_file(raws, bs, total, stride=C.file_stride(blob))
+
+
 @pytest.mark.parametrize("max_dispatch", [1, 3])
 def test_inflight_4_equals_inflight_1(cuda, monkeypatch, max_dispatch):
     """Four batches in flight (BMH_INFLIGHT=4), also fanned out over two
     slots on the card, write and decode the same bytes as one batch at a
-    time, K5 on and off."""
+    time, K5 on and off, and refuse the same CRC-valid containers whose
+    rle_len lies (a flat-route block and a periodic-route block)."""
+    from bmh_tpu_torch.models import pipeline
+
     rng = np.random.default_rng(9)
     motif = bytes(rng.integers(0, 256, 512, dtype=np.uint8))
     data = _text(600000, 9) + motif * 128 + b"\x00" * 3
+    lying = [_lying_rle_len(bt.compress_bytes(data[:12000], block_size=16384,
+                                              device="cpu"), -3),
+             _lying_rle_len(bt.compress_bytes(motif * 256, block_size=65536,
+                                              device="cpu"), -2)]
     monkeypatch.setattr(config.DEFAULT, "max_dispatch", max_dispatch)
     for sort3 in (False, True):
         monkeypatch.setattr(config.DEFAULT, "pallas_sort", sort3)
@@ -496,6 +611,11 @@ def test_inflight_4_equals_inflight_1(cuda, monkeypatch, max_dispatch):
             blobs[inflight, str(dev)] = blob = bt.compress_bytes(
                 data, block_size=65536, device=dev)
             assert bt.decompress_bytes(blob, device=dev) == data
+            if isinstance(dev, tuple):  # the batches went to both slots
+                assert pipeline.LAST_DISPATCH["decompress_ndev"] == 2
+            for bad in lying:
+                with pytest.raises(ValueError):
+                    bt.decompress_bytes(bad, device=dev)
         assert len(set(blobs.values())) == 1
     assert blob == bt.compress_bytes(data, block_size=65536, device="cpu")
 
@@ -519,12 +639,16 @@ def test_second_card(cuda, monkeypatch):
     assert pipeline.LAST_DISPATCH["decompress_ndev"] > 1
 
 
-def test_cli_and_resumable_roundtrip_on_the_card(cuda, tmp_path, capsys):
+def test_cli_and_resumable_roundtrip_on_the_card(cuda, monkeypatch, tmp_path, capsys):
     """The command line on the card (its default device): compress, the
     resumable compress, decompress and verify; both containers equal the
-    CPU's."""
-    from bmh_tpu_torch import cli
+    CPU's.  The resumable file cut inside its third block resumes from the
+    second and ends with the one-shot container's blocks.  The bench's
+    synthetic round trip at BMH_INFLIGHT 1 and 4 is bit-exact and reads
+    the card's time."""
+    from bmh_tpu_torch import bench, cli
     from bmh_tpu_torch.utils import container
+    from bmh_tpu_torch.utils.stream import compress_file_resumable
 
     data = _text(300000, 11)
     src = tmp_path / "in.txt"
@@ -537,8 +661,20 @@ def test_cli_and_resumable_roundtrip_on_the_card(cuda, tmp_path, capsys):
     assert capsys.readouterr().out.splitlines()[-1] == "success"
     one_shot = (tmp_path / "a.bzt").read_bytes()
     assert one_shot == bt.compress_bytes(data, block_size=65536, device="cpu")
-    assert (container.unpack_file((tmp_path / "s.bzt").read_bytes())[2]
-            == container.unpack_file(one_shot)[2])
+    resumable = (tmp_path / "s.bzt").read_bytes()
+    raws = container.unpack_file(resumable)[2]
+    assert raws == container.unpack_file(one_shot)[2]
+    cut = container.FILE_HEADER.size + sum(4 + len(r) for r in raws[:2]) + 3
+    (tmp_path / "s.bzt").write_bytes(resumable[:cut])
+    info = compress_file_resumable(str(src), str(tmp_path / "s.bzt"), block_size=65536,
+                                   device=cuda)
+    assert info["resumed_from"] == 2
+    assert container.unpack_file((tmp_path / "s.bzt").read_bytes())[2] == raws
+    for depth in (1, 4):
+        monkeypatch.setattr(config.DEFAULT, "inflight", depth)
+        rec = bench.run_synthetic(total_mb=4, device=cuda)
+        assert rec["bit_exact"] is True and rec["inflight"] == depth
+        assert rec["device_ms"] > 0
 
 
 def test_oracle_containers_equal_the_cards(cuda):
@@ -550,11 +686,38 @@ def test_oracle_containers_equal_the_cards(cuda):
     assert bt.decompress_bytes(blob, backend="oracle") == data
 
 
+_DIST_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {root!r})
+    import torch.distributed as dist
+    import bmh_tpu_torch as bt
+    from bmh_tpu_torch.parallel import distributed as d
+
+    rank = int(sys.argv[1])
+    d.initialize(coordinator_address="localhost:{port}", num_processes=2,
+                 process_id=rank)
+    data = open({src!r}, "rb").read()
+    be = bt.get_backend("torch", "cuda")
+    blob = d.compress_stream(data, 65536, be)
+    assert (blob is not None) == (rank == 0)
+    if rank == 0:
+        open({blob_path!r}, "wb").write(blob)
+    dist.barrier()
+    back = d.decompress_stream(open({blob_path!r}, "rb").read(), be)
+    assert back == data if rank == 0 else back is None
+    dist.destroy_process_group()
+    print("DIST_OK", rank)
+""")
+
+
 def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
     """make_roundtrip_step on a one-process NCCL group: every row decodes,
     the bits are the tables' lengths over the histograms, and K1-K4 launch
     (256-bit chunks, MTF chunk 128); a second call replays the captured
-    step, collectives included, and gives the same outputs."""
+    step, collectives included, and gives the same outputs; the dry run
+    passes in the same group.  Then parallel/distributed's block stripes
+    over two processes sharing the card (gloo): rank 0's container equals
+    this process's, and both ranks decode it."""
     import torch.distributed as dist
 
     from bmh_tpu_torch.models import programs
@@ -581,60 +744,121 @@ def test_roundtrip_step_on_one_nccl_process(cuda, tmp_path):
         again = step(*args)
         assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 1
         assert all(torch.equal(a, b) for a, b in zip(again, (out, total_ok, bits)))
+        launches = dict(_build.LAUNCHES)
+        tdp.dryrun_multichip(1, device="cuda")
     finally:
         programs.clear()  # the captured collectives go before their group
         dist.destroy_process_group()
-    assert all(_build.LAUNCHES[k] > 0 for k in ("gap_decode_phase_a", "gap_decode_phase_b",
-                                                "imtf_chunks", "ibwt_walk"))
+    assert all(launches[k] > 0 for k in ("gap_decode_phase_a", "gap_decode_phase_b",
+                                         "imtf_chunks", "ibwt_walk"))
     assert int(total_ok) == int(ns.sum())
     assert np.array_equal(bits.cpu().numpy(), (freqs * tbl["enc_len"]).sum(1))
     out = out.cpu().numpy()
     for row in range(b):
         assert (out[row, : ns[row]] == batch[row, : ns[row]]).all()
 
+    data = _text(600000, 14)
+    (tmp_path / "in.bin").write_bytes(data)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = _DIST_WORKER.format(root=str(ROOT), port=port, src=str(tmp_path / "in.bin"),
+                                 blob_path=str(tmp_path / "c.bzt"))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    torch.cuda.empty_cache()  # the two processes share the card
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"DIST_OK {r}" in text, text
+    assert (tmp_path / "c.bzt").read_bytes() == bt.compress_bytes(
+        data, block_size=65536, device=cuda)
 
-def test_two_mib_block_decode_matches_plain(cuda, monkeypatch):
-    """bmh_tpu's largest block (2 MiB, Nmax 2^21): a container of one text
-    block and one random block decodes bit-exact on the card, with BMH_LF2
-    on and off, and K1-K4, on the arguments the decode gave them, equal
-    their plain versions exactly."""
-    from bmh_tpu_torch.ops import decode_kernels as dk
 
-    from bmh_tpu_torch.models import programs
+# decode case -> (its streams, block size, the kernels its decode calls, the
+# batches its compress uploads plain and compact, where the case counts them)
+DECODE_CASES = {
+    "2mib": (lambda: [synth.smoke_input(0, text_bytes=1 << 21, random_bytes=1 << 19)],
+             1 << 21, microbench.DECODE, {}),
+    "flat_32x128k": (lambda: [synth.smoke_input(0, text_bytes=32 << 17, random_bytes=0)],
+                     1 << 17, microbench.DECODE, {"plain": 1, "compact": 0}),
+    "periodic_8mib": (lambda: [synth.record_stream(0)], 1 << 17,
+                      microbench.DECODE[:3], {}),
+    "single_symbol_99": (lambda: [b"\x00" * 3] * 99, 2048, ("imtf_chunks",), {}),
+    "zero_pages_32mib": (lambda: [synth.zero_pages(0)], 1 << 20, microbench.DECODE,
+                         {"compact": 1}),
+}
 
-    big = bt.api.MAX_BLOCK_SIZE
-    data = synth.smoke_input(0, text_bytes=big, random_bytes=1 << 19)
-    blob = bt.compress_bytes(data, block_size=big, device=cuda)
-    programs.clear()  # the decode's warm-up run hands the kernels their inputs
-    captured = {}
-    wrappers = [(dk, "phase_a"), (dk, "phase_b"), (imtf_kernel, "imtf_chunks"),
-                (ibwt_kernel, "ibwt_walk")]
-    for mod, name in wrappers:
-        orig = getattr(mod, name)
 
-        def rec(*args, _name=name, _orig=orig):
-            if _name not in captured:
-                captured[_name] = [a.clone() if torch.is_tensor(a) else a
-                                   for a in args]
-            return _orig(*args)
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_two_mib_block_decode_matches_plain(cuda, monkeypatch, case):
+    """A decode on the card gives its streams back, calling the kernels its
+    route calls, and each of K1-K4 equals its plain version exactly on the
+    arguments the decode gave it (microbench.hold).  The cases: bmh_tpu's
+    largest block (2 MiB, Nmax 2^21; one text block and one random block),
+    also with BMH_LF2 off, then its largest dispatch, 32 such blocks of text
+    at BMH_INFLIGHT 1 and 4 (one program run each way, one container); the
+    main path's batch, 32 text blocks of 128 KiB (a plain upload); 8 MiB of
+    one record (64 periodic blocks, no checkpoints: K1-K3 only, and a warm
+    decode reads nothing on the host, not even a loop flag); 99 one-symbol
+    streams through decompress_many(uniform=True) (K3 only); 32 MiB of
+    zero-heavy pages at 1 MiB blocks (one compact upload)."""
+    from bmh_tpu_torch.models import pipeline, programs
+    from bmh_tpu_torch.utils import container as C
 
-        monkeypatch.setattr(mod, name, rec)
-    assert bt.decompress_bytes(blob, device=cuda) == data
-    monkeypatch.undo()
-    table, starts, steps, hop = captured["ibwt_walk"]
-    assert table.shape[1] == big and hop == ibwt_kernel.HOP
-    for got, want in (
-            (dk.phase_a(*captured["phase_a"]), dk.phase_a_plain(*captured["phase_a"])),
-            (dk.phase_b(*captured["phase_b"]), dk.phase_b_plain(*captured["phase_b"])),
-            (imtf_kernel.imtf_chunks(*captured["imtf_chunks"]),
-             imtf_kernel.imtf_chunks_plain(*captured["imtf_chunks"])),
-            (ibwt_kernel.ibwt_walk(table, starts, steps, hop),
-             ibwt_kernel.ibwt_walk_plain(table, starts, steps, 1))):
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    make, block, kernels, uploads = DECODE_CASES[case]
+    items = make()
+    before = dict(pipeline.UPLOADS)
+    if len(items) == 1:
+        blobs = [bt.compress_bytes(items[0], block_size=block, device=cuda)]
+    else:
+        blobs = bt.compress_many(items, block_size=block, device=cuda)
+    assert {k: pipeline.UPLOADS[k] - before[k] for k in uploads} == uploads
+
+    def decode():
+        if len(items) == 1:
+            return [bt.decompress_bytes(blobs[0], device=cuda)]
+        return bt.decompress_many(blobs, uniform=True, device=cuda)
+
+    captured, out = microbench.capture_kernel_inputs(decode)
+    assert out == items and set(captured) == set(kernels)
+    microbench.hold(captured)
+    if case == "periodic_8mib":
+        raws = C.unpack_file(blobs[0])[2]
+        assert len(raws) == 64 and all(C.unpack_block(r)[4] is None for r in raws)
+        programs.reset_stats()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert decode() == items
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert programs.STATS["flag_reads"] == 0 and programs.STATS["captures"] == 0
+    if case != "2mib":
+        return
+    table, _, _, hop = captured["ibwt_walk"]
+    assert table.shape[1] == block and hop == ibwt_kernel.HOP
     monkeypatch.setattr(config.DEFAULT, "lf2", False)
-    assert bt.decompress_bytes(blob, device=cuda) == data
+    assert decode() == items
+    monkeypatch.undo()
+
+    stream = synth.smoke_input(0, text_bytes=32 * block, random_bytes=0)
+    blobs = set()
+    for depth in (1, 4):
+        monkeypatch.setattr(config.DEFAULT, "inflight", depth)
+        programs.reset_stats()
+        blob = bt.compress_bytes(stream, block_size=block, device=cuda)
+        assert bt.decompress_bytes(blob, device=cuda) == stream
+        assert programs.STATS["runs"] == 2
+        blobs.add(blob)
+    assert len(blobs) == 1
 
 
 # --- the program layer: captured CUDA graphs ---------------------------------
@@ -741,25 +965,41 @@ def test_lf2_is_in_the_decode_key(cuda, monkeypatch):
     assert programs.STATS["captures"] == 1
 
 
-def test_upload_and_route_programs_replay_without_host_reads(cuda):
+@pytest.mark.parametrize("n_singles,sort3", [(5, False), (99, True)],
+                         ids=["5_singles", "99_singles_sort3"])
+def test_upload_and_route_programs_replay_without_host_reads(cuda, monkeypatch,
+                                                             n_singles, sort3):
     """The inflate program feeding a compress program (32 small files in
-    128 KiB rows), the periodic program (four 64 KiB blocks of one record)
-    and the single-symbol program (five streams padded to eight rows):
-    containers equal the CPU run's, and a second call of each replays
+    128 KiB rows; in the second case with BMH_PALLAS_SORT=1, through K5),
+    the periodic program (four 64 KiB blocks of one record) and the
+    single-symbol program (five streams padded to eight rows; 99 streams
+    in batches of 32, 32, 32 and 3 padded to 4): containers equal the CPU
+    run's (the files one compact upload and no plain one, the record's
+    blocks periodic: no checkpoints), and a second call of each replays
     under sync debug mode "error" without a capture; the decodes read no
-    loop flag."""
+    loop flag.  K5 equals its plain version on the keys the inflated batch
+    gave it."""
     from bmh_tpu_torch.models import pipeline, programs
+    from bmh_tpu_torch.utils import container as C
 
     files = synth.small_files(5, count=32)
     rec = synth.record_stream(5, total=4 * 65536)
-    singles = [b"\x00" * 3] * 5
+    singles = [b"\x00" * 3] * n_singles
     want = bt.compress_many(files, block_size=131072, uniform=True, device="cpu")
     blob_r = bt.compress_bytes(rec, block_size=65536, device="cpu")
+    assert all(C.unpack_block(r)[4] is None for r in C.unpack_file(blob_r)[2])
     blobs_s = bt.compress_many(singles, block_size=2048, device="cpu")
-    programs.clear()
-    before = pipeline.UPLOADS["compact"]
-    assert bt.compress_many(files, block_size=131072, uniform=True, device=cuda) == want
-    assert pipeline.UPLOADS["compact"] == before + 1
+    monkeypatch.setattr(config.DEFAULT, "pallas_sort", sort3)
+    before = dict(pipeline.UPLOADS)
+    _build.reset_launches()
+    captured, got = microbench.capture_kernel_inputs(  # from an empty cache
+        lambda: bt.compress_many(files, block_size=131072, uniform=True, device=cuda),
+        ("sort3",))
+    assert got == want
+    assert pipeline.UPLOADS["compact"] == before["compact"] + 1
+    assert pipeline.UPLOADS["plain"] == before["plain"]
+    assert (_build.LAUNCHES["sort3"] > 0) == sort3 == ("sort3" in captured)
+    microbench.hold(captured)
     assert bt.decompress_bytes(blob_r, device=cuda) == rec
     assert bt.decompress_many(blobs_s, uniform=True, device=cuda) == singles
     programs.reset_stats()
@@ -772,7 +1012,11 @@ def test_upload_and_route_programs_replay_without_host_reads(cuda):
                                 device=cuda) == want
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 4
+    batches = -(-n_singles // 32)
+    assert programs.STATS["captures"] == 0 and programs.STATS["hits"] == 3 + batches
+    single_rows = sorted(k[1] for k in programs._cache_for(cuda).entries
+                         if k[0] == "decode_single")
+    assert single_rows == ([8] if n_singles == 5 else [4, 32])
 
 
 def test_recorder_on_the_card(cuda):

@@ -1,7 +1,8 @@
 """bmh_tpu_torch.tools.microbench on the CPU: its case list, its argument
 parsing, that it names every formulation bmh_tpu's two microbench tools
 time, and that it refuses to run without a card (it has no CPU fallback).
-Its numbers come only from a card: chip_smoke.py's [microbench] phase."""
+Its numbers come only from a card:
+python -m bmh_tpu_torch.tools.microbench [case ...] there."""
 
 import re
 from pathlib import Path
@@ -19,7 +20,7 @@ RENAMED = {"cumsum_4M_u32": "cumsum_4M"}
 def test_case_list():
     assert microbench.CASES == ("bitpack", "sort", "lf", "prims", "radix",
                                 "compose", "place", "hist", "ibwt", "sparse",
-                                "code_lengths", "mtf_forward")
+                                "code_lengths", "mtf_forward", "decode")
     assert set(microbench.BENCHES) == set(microbench.CASES)
     assert all(callable(f) for f in microbench.BENCHES.values())
 

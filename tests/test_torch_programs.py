@@ -1,8 +1,8 @@
 """The program layer (models/programs.py) and the sync-free programs it
 runs, against bmh_tpu on the CPU.
 
-(a) the cache key: every knob a program reads changes it, the same shape
-    and knobs hit the cache;
+(a) the cache key: every knob a program reads changes it, a knob no
+    program reads leaves it, the same shape and knobs hit the cache;
 (b) code_lengths_device's fixed 256-step loop equals bmh_tpu's on seeded
     histograms, down to a 25-bit code;
 (c) sparse_ranks with the handoff's tie total and the resume choice on the
@@ -16,6 +16,8 @@ runs, against bmh_tpu on the CPU.
 The programs also run under a torch-function mode that fails on any read
 of a tensor's value by the host other than a while_loop's predicate, so
 nothing in them would wait for a card.  Integers compare exactly."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -62,23 +64,45 @@ def knobs(monkeypatch):
 
 FLIPS = {"mtf_chunk": 64, "imtf_chunk": 512, "full_rounds": 3,
          "sparse_cap_div": 8, "tier1_rounds": 1, "tier2_div": 2,
-         "pallas_sort": True, "pallas_decode": False, "pallas_imtf": False,
-         "lf2": False, "decode_place": "scatter", "min_bucket": 512,
-         "debug_sparse": True}
+         "pallas_sort": True, "lf2": False}
+# knobs that no program reads (min_bucket: the host only, through nmax)
+UNREAD = {"pallas_decode": False, "pallas_imtf": False, "decode_place": "scatter",
+          "min_bucket": 512, "debug_sparse": True}
+KEY_SHAPE = dict(b_pad=4, nmax=BLOCK, nc=1024, chunk_bits=512, maxl=16, stride=4096)
 
 
 def test_flips_cover_every_knob():
     assert set(FLIPS) == set(programs.KNOBS)
+    assert not set(UNREAD) & set(FLIPS)
+    assert set(FLIPS) | set(UNREAD) <= {f.name for f in dataclasses.fields(tconfig.DEFAULT)}
 
 
 @pytest.mark.parametrize("knob", sorted(FLIPS))
 def test_every_knob_changes_the_key(knobs, knob):
-    shape = dict(b_pad=4, nmax=BLOCK, nc=1024, chunk_bits=512, maxl=16, stride=4096)
-    before = programs.key("decode_flat", **shape)
-    assert programs.key("decode_flat", **shape) == before
+    before = programs.key("decode_flat", **KEY_SHAPE)
+    assert programs.key("decode_flat", **KEY_SHAPE) == before
     assert getattr(tconfig.DEFAULT, knob) != FLIPS[knob]
     knobs(**{knob: FLIPS[knob]})
-    assert programs.key("decode_flat", **shape) != before
+    assert programs.key("decode_flat", **KEY_SHAPE) != before
+
+
+@pytest.mark.parametrize("knob", sorted(UNREAD))
+def test_unread_knob_leaves_the_key(knobs, knob):
+    """A knob that no program reads leaves the key as it is (the config
+    still accepts and validates it), so a second call after flipping it
+    hits the program the first call made."""
+    before = programs.key("decode_flat", **KEY_SHAPE)
+    data = bytes(synth.smoke_input(4, text_bytes=BLOCK, random_bytes=0))
+    blob = bt.compress_bytes(data, block_size=BLOCK, device="cpu")
+    programs.clear()
+    programs.reset_stats()
+    assert bt.decompress_bytes(blob, device="cpu") == data
+    assert getattr(tconfig.DEFAULT, knob) != UNREAD[knob]
+    knobs(**{knob: UNREAD[knob]})
+    tconfig.DEFAULT.validate()
+    assert programs.key("decode_flat", **KEY_SHAPE) == before
+    assert bt.decompress_bytes(blob, device="cpu") == data
+    assert programs.STATS["runs"] == 2 and programs.STATS["hits"] == 1
 
 
 def test_same_shape_and_knobs_hit_the_cache():
