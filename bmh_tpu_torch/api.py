@@ -61,8 +61,13 @@ class OracleBackend:
     name = "oracle"
 
     def compress_blocks(self, blocks: list[np.ndarray], stride: int) -> list[dict]:
+        """The blocks are raw: each takes RLE1 on the host where that
+        strictly shrinks it (unless BMH_RLE1=0), as the torch backend's do
+        on the card."""
         from .models import oracle
 
+        if CONFIG.rle1:
+            blocks = [nativeio.rle1_encode(b) for b in blocks]
         results = [oracle.compress_block(b, stride) for b in blocks]
         for r in results:
             r["present"] = r["freqs"] > 0
@@ -96,19 +101,6 @@ def _as_array(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return np.frombuffer(data, dtype=np.uint8)
     return np.asarray(data, dtype=np.uint8)
-
-
-def _rle1_blocks(blocks: list[np.ndarray]) -> tuple[list[np.ndarray], list[int]]:
-    """Per-block RLE1 pre-pass: the (possibly collapsed) blocks the codec
-    sees, plus each block's raw length.  A block keeps its raw bytes when
-    RLE1 would not strictly shrink it."""
-    if not CONFIG.rle1:
-        return blocks, [b.size for b in blocks]
-    out = []
-    for b in blocks:
-        enc = nativeio.rle1_encode(b)
-        out.append(enc if enc.size < b.size else b)
-    return out, [b.size for b in blocks]
 
 
 def _rle1_restore(part: np.ndarray, raw_len: int) -> np.ndarray:
@@ -148,14 +140,11 @@ def compress_many(datas: list, block_size: int = DEFAULT_BLOCK_SIZE,
         with annotate("api.split", "api"):
             split = [container.split_blocks(arr, block_size) for arr in arrs]
         flat_blocks: list[np.ndarray] = []
-        flat_raw: list[int] = []
         spans = []
-        with annotate("api.rle1", "api"):
-            for raw_blocks in split:
-                blocks, raw_lens = _rle1_blocks(raw_blocks)
-                spans.append((len(flat_blocks), len(blocks)))
-                flat_blocks.extend(blocks)
-                flat_raw.extend(raw_lens)
+        for raw_blocks in split:
+            spans.append((len(flat_blocks), len(raw_blocks)))
+            flat_blocks.extend(raw_blocks)
+        flat_raw = [b.size for b in flat_blocks]
         if uniform and be.name == "torch":
             from .models.pipeline import _bucket
 

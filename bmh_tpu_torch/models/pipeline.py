@@ -7,9 +7,17 @@ batch of blocks at once, then one device->host copy of [per-block metadata
 (`sparse_ranks`: a few doubling rounds, the adaptive handoff, sparse
 refinement of the tied positions) unless the batch looks run-dominated,
 which takes the full-rounds program (`ops/bwt.bwt_forward_cp`).  A compress
-program marks three stages (ops/control.stage), which the card times:
+program marks its stages (ops/control.stage), which the card times: `rle1`
+(the RLE1 of raw blocks, kernel K8, where the program takes them raw),
 `bwt`, `mtf` (MTF, RLE0, histograms) and `entropy` (code lengths,
 canonical codes, bitpack, the flattened output).
+
+RLE1 (`TorchBackend.compress_blocks` takes raw blocks): each block's RLE1
+runs inside its compress program, on the card, unless the block may
+shrink into a smaller bucket (`_rle1_on_host`: no bucket forced, a sampled
+check finds it run-heavy); such a block is collapsed on the host first and
+bucketed on its collapsed length.  The bytes are the same either way;
+`UPLOADS` counts the rows of each path.
 
 Decompress, bmh_tpu's three routes:
 * flat (aperiodic blocks): host staging of the batch's payloads on one
@@ -50,7 +58,9 @@ decompress dispatches go round-robin over them.  `LAST_DISPATCH` records
 the last fan-out of each direction.
 
 Spans (utils/tracing.annotate, layer "pipeline"), per batch, never per
-block: `pipeline.group` (grouping; the pathology test on compress), one
+block: `pipeline.group` (grouping; on compress the pathology test and,
+inside `pipeline.rle1`, the RLE1 rule and the host's RLE1 of the blocks
+it picks), one
 dispatch span a batch (`compress_dispatch_b*`, `decompress_dispatch_b*`,
 `decompress_single_b*`) holding `pipeline.stage` (host staging and the
 upload's arrays) and models/programs.py's `programs.run`, then
@@ -71,6 +81,7 @@ from ..ops import mtf as ops_mtf
 from ..ops import rle as ops_rle
 from ..ops.control import doublings, scalar, stage, while_loop
 from ..utils import config as config_mod
+from ..utils import nativeio
 from ..utils.tracing import annotate
 from . import programs
 
@@ -121,6 +132,35 @@ def _looks_pathological(blk: np.ndarray) -> bool:
     if blk.size < 8192:
         return False
     return float(np.mean(blk[:-2048:37] == blk[2048::37])) > _PATHOLOGICAL_SELF_SIM
+
+
+# RLE1 collapses a run of L >= 8 bytes to at most L - 3: a sampled byte
+# counts as collapsed where it and the next _RLE1_RUN_SPAN - 1 bytes are
+# equal; about _RLE1_SAMPLES bytes of a block are sampled, at an odd stride
+_RLE1_RUN_SPAN = 8
+_RLE1_SAMPLES = 1024
+
+
+def _rle1_on_host(blk: np.ndarray) -> bool:
+    """Whether RLE1 may move a raw block to a smaller bucket: the share of
+    strided samples that start a run of _RLE1_RUN_SPAN equal bytes (one
+    compare at that span first, all of them only where that share could
+    pass) at least the share of its bytes it must lose to fit the next
+    bucket down.  No pass over the whole block."""
+    n = blk.size
+    target = max(_bucket(n) // 2, config_mod.DEFAULT.min_bucket)
+    if target >= _bucket(n) or n <= _RLE1_RUN_SPAN:
+        return False
+    k = _RLE1_RUN_SPAN - 1
+    step = (n // _RLE1_SAMPLES) | 1
+    head = blk[:n - k:step]
+    need = (1 - target / n) * head.size
+    run = head == blk[k::step]
+    if np.count_nonzero(run) < need:
+        return False
+    for d in range(1, k):
+        run &= head == blk[d:n - k + d:step]
+    return np.count_nonzero(run) >= need
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +255,17 @@ def _sparse_refine_compact(rank: torch.Tensor, tied: torch.Tensor,
 
 def _meta_cols(nmax: int, stride: int) -> int:
     """Columns of a compress program's meta row: bits, nw, shift, m,
-    aperiodic, present (257), lens (257), cps (max(nmax // stride, 1))."""
-    return 5 + 2 * A + max(nmax // stride, 1)
+    aperiodic, n (the block's length as the BWT took it), present (257),
+    lens (257), cps (max(nmax // stride, 1))."""
+    return 6 + 2 * A + max(nmax // stride, 1)
 
 
-def _flatten_out(words, bits, lens, freqs, m, shift, cps, aper) -> torch.Tensor:
+def _flatten_out(words, bits, lens, freqs, m, shift, cps, aper, n) -> torch.Tensor:
     """A compress program's one output at a static size, as bmh_tpu's
-    _flatten_payloads and _merge_out: (B * meta_cols + B * W,) int32, the
-    meta rows, then every block's word-aligned payload back to back (the
-    rest zero).  Payload words are uint32 bit patterns; meta values fit
-    31 bits."""
+    _flatten_payloads and _merge_out (with each row's length n in its meta
+    row): (B * meta_cols + B * W,) int32, the meta rows, then every block's
+    word-aligned payload back to back (the rest zero).  Payload words are
+    uint32 bit patterns; meta values fit 31 bits."""
     b, w = words.shape
     nw = (bits + 31) // 32
     woffs = torch.cumsum(nw, 0) - nw
@@ -232,20 +273,24 @@ def _flatten_out(words, bits, lens, freqs, m, shift, cps, aper) -> torch.Tensor:
     dest = torch.where(slot < nw[:, None], woffs[:, None] + slot, b * w)
     flat = torch.zeros(b * w + 1, dtype=torch.int64, device=words.device)
     flat = flat.scatter_(0, dest.reshape(-1), words.reshape(-1))[: b * w]
-    meta = torch.cat([torch.stack([bits, nw, shift, m, aper.to(torch.int64)], 1),
+    meta = torch.cat([torch.stack([bits, nw, shift, m, aper.to(torch.int64), n], 1),
                       (freqs > 0).to(torch.int64), lens, cps], dim=1)
     out = torch.cat([meta.reshape(-1), flat])
     return (out - ((out >> 31) << 32)).to(torch.int32)
 
 
 def compress_program(data: torch.Tensor, n: torch.Tensor, stride: int,
-                     hard: bool, b_pad: int) -> torch.Tensor:
-    """The whole compress of a (B, Nmax) batch as one program: the BWT by
-    the full-rounds program (hard) or the sparse/adaptive one, whose
-    compact set b_pad (the batch rounded up to a power of two) sizes, then
-    MTF, RLE0 and histograms, then code lengths, canonical codes, bitpack
-    and _flatten_out, each stage marked.  On a card B = b_pad, the rows
-    past the batch carrying n = 1 as bmh_tpu's dummy rows do."""
+                     hard: bool, b_pad: int, rle1: bool = False) -> torch.Tensor:
+    """The whole compress of a (B, Nmax) batch as one program: with `rle1`
+    the RLE1 of the raw rows first (kernel K8, ops/rle.rle1_encode), then
+    the BWT by the full-rounds program (hard) or the sparse/adaptive one,
+    whose compact set b_pad (the batch rounded up to a power of two) sizes,
+    then MTF, RLE0 and histograms, then code lengths, canonical codes,
+    bitpack and _flatten_out, each stage marked.  On a card B = b_pad, the
+    rows past the batch carrying n = 1 as bmh_tpu's dummy rows do."""
+    if rle1:
+        with stage("rle1"):
+            data, n = ops_rle.rle1_encode(data, n)
     with stage("bwt"):
         if hard:
             last, shift, cps, aper = ops_bwt.bwt_forward_cp(data, n, stride)
@@ -258,7 +303,7 @@ def compress_program(data: torch.Tensor, n: torch.Tensor, stride: int,
         lens = ops_huf.code_lengths_device(freqs)
         canon = ops_huf.canonical_codes_device(lens)
         words, bits = ops_huf.encode_bitpack(syms, m, lens, canon)
-        return _flatten_out(words, bits, lens, freqs, m, shift, cps, aper)
+        return _flatten_out(words, bits, lens, freqs, m, shift, cps, aper, n)
 
 
 # The compact upload (bmh_tpu's _upload_batch): a batch whose padding would
@@ -269,8 +314,11 @@ _UPLOAD_QUANTUM = 1 << 19
 
 # host->device uploads of compress batches since the process started:
 # batches sent plain and compact, the bytes of their data sent, and the
-# bytes the plain (rows, nmax) upload would have sent
-UPLOADS = {"plain": 0, "compact": 0, "bytes": 0, "plain_bytes": 0}
+# bytes the plain (rows, nmax) upload would have sent; and the blocks whose
+# RLE1 ran on the card, those of them it shrank, and those collapsed on the
+# host instead (_rle1_on_host)
+UPLOADS = {"plain": 0, "compact": 0, "bytes": 0, "plain_bytes": 0,
+           "rle1_device_rows": 0, "rle1_device_collapsed": 0, "rle1_host_rows": 0}
 
 
 def inflate_program(flat: torch.Tensor, offs: torch.Tensor, ns: torch.Tensor,
@@ -318,28 +366,34 @@ def _upload_batch(arrs, idxs, ns: np.ndarray, nmax: int, rows: int):
 
 
 def _compress_dispatch(arrs, idxs, nmax: int, stride: int, hard: bool,
-                       b_pad: int, device):
+                       b_pad: int, device, rle1: bool = False):
     """Dispatch the blocks `idxs` on `device`: stage them (on a card as a
     b_pad-row batch, so that shapes repeat; the CPU keeps no graph to
     reuse and takes the rows as they are) by _upload_batch, run the
-    compress program (hard: the full-rounds one) through the program cache
-    and start the ONE copy of [per-block meta | compacted payload words] to
-    the host.  Returns (the copy, (rows, meta columns))."""
+    compress program (hard: the full-rounds one; rle1: the blocks are raw,
+    and their RLE1 runs first) through the program cache and start the ONE
+    copy of [per-block meta | compacted payload words] to the host.
+    Returns (the copy, (rows, meta columns))."""
     rows = b_pad if device.type == "cuda" else len(idxs)
     with annotate("pipeline.stage"):
         ns = np.ones(rows, dtype=np.int64)  # dummy rows compress n = 1
         for row, i in enumerate(idxs):
             ns[row] = arrs[i].size
         data = _upload_batch(arrs, idxs, ns, nmax, rows)
-    k = programs.key("compress_full" if hard else "compress_sparse",
-                     b_pad=rows, nmax=nmax, stride=stride)
-    fn = functools.partial(compress_program, stride=stride, hard=hard, b_pad=b_pad)
+    name = ("compress_full" if hard else "compress_sparse") + ("_rle1" if rle1 else "")
+    k = programs.key(name, b_pad=rows, nmax=nmax, stride=stride)
+    fn = functools.partial(compress_program, stride=stride, hard=hard, b_pad=b_pad,
+                           rle1=rle1)
+    if rle1:
+        UPLOADS["rle1_device_rows"] += len(idxs)
     return programs.run(device, k, fn, (data, ns)), (rows, _meta_cols(nmax, stride))
 
 
 def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
     """Wait for a compress dispatch's copy; returns its per-block result
-    dicts."""
+    dicts, each block's "orig_len" the length its BWT took (shorter than
+    the block where the program's RLE1 shrank it, which UPLOADS
+    counts)."""
     copy, (rows, cols) = part
     host = copy.wait()
     meta_np = host[: rows * cols].reshape(rows, cols).astype(np.int64)
@@ -347,10 +401,10 @@ def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
     woffs = np.cumsum(meta_np[:, 1]) - meta_np[:, 1]
     results = []
     for row, i in enumerate(idxs):
-        tb, nwr, sh, mr, ap = (int(v) for v in meta_np[row, :5])
-        present = meta_np[row, 5:5 + A].astype(bool)
-        lens_r = meta_np[row, 5 + A:5 + 2 * A].astype(np.uint8)
-        n_r = int(arrs[i].size)
+        tb, nwr, sh, mr, ap, n_r = (int(v) for v in meta_np[row, :6])
+        UPLOADS["rle1_device_collapsed"] += n_r < arrs[i].size
+        present = meta_np[row, 6:6 + A].astype(bool)
+        lens_r = meta_np[row, 6 + A:6 + 2 * A].astype(np.uint8)
         payload = (flat_np[woffs[row]: woffs[row] + nwr].tobytes()[: (tb + 7) // 8]
                    if (lens_r > 0).any() else b"")
         results.append({
@@ -361,7 +415,7 @@ def _compress_unpack(part, arrs, idxs, stride: int) -> list[dict]:
             "payload": payload,
             "total_bits": tb,
             "rle_len": mr,
-            "cps": (meta_np[row, 5 + 2 * A:5 + 2 * A + _n_cps(n_r, stride)]
+            "cps": (meta_np[row, 6 + 2 * A:6 + 2 * A + _n_cps(n_r, stride)]
                     .astype(np.int32) if ap else None),
         })
     return results
@@ -693,18 +747,31 @@ class TorchBackend:
     def compress_blocks(self, blocks: list[np.ndarray], stride: int,
                         bucket: int | None = None,
                         full_rounds: bool = False) -> list[dict]:
-        """bucket: force one padded size for every block; full_rounds: run
-        the full-rounds program for every batch (the same bytes)."""
+        """The blocks are raw: each takes RLE1 where that strictly shrinks
+        it (unless BMH_RLE1=0), on the card or, for a block _rle1_on_host
+        picks where no bucket is forced, on the host; a result's "orig_len"
+        is the block's length after RLE1.  bucket: force one padded size
+        for every block; full_rounds: run the full-rounds program for every
+        batch (the same bytes)."""
         results: list[dict | None] = [None] * len(blocks)
-        groups: dict[tuple[int, bool], list[int]] = defaultdict(list)
+        groups: dict[tuple[int, bool, bool], list[int]] = defaultdict(list)
         with annotate("pipeline.group"):
             arrs = [np.asarray(b, dtype=np.uint8) for b in blocks]
+            dev_rle1 = config_mod.DEFAULT.rle1
+            on_card = [dev_rle1] * len(arrs)
+            if dev_rle1 and bucket is None:
+                with annotate("pipeline.rle1"):
+                    for i, blk in enumerate(arrs):
+                        if _rle1_on_host(blk):
+                            arrs[i] = nativeio.rle1_encode(blk)
+                            on_card[i] = False
+                            UPLOADS["rle1_host_rows"] += 1
             for i, blk in enumerate(arrs):
                 nmax = max(bucket, _bucket(blk.size)) if bucket else _bucket(blk.size)
-                groups[(nmax, _looks_pathological(blk))].append(i)
+                groups[(nmax, _looks_pathological(blk), on_card[i])].append(i)
 
         def batches():
-            for (nmax, hard), all_idxs in groups.items():
+            for (nmax, hard, dev_rle1), all_idxs in groups.items():
                 for idxs in _chunks(all_idxs):
                     b_pad = _next_pow2(len(idxs))
                     ndev = _ndev_for(b_pad, len(self.devices))
@@ -720,7 +787,8 @@ class TorchBackend:
                     yield shards, [
                         (self.devices[d], f"compress_dispatch_b{b_pad}",
                          functools.partial(_compress_dispatch, arrs, s, nmax,
-                                           stride, hard or full_rounds, b_loc))
+                                           stride, hard or full_rounds, b_loc,
+                                           rle1=dev_rle1))
                         for d, s in enumerate(shards)]
 
         def drain(shards, parts):

@@ -79,7 +79,7 @@ KNOBS = ("mtf_chunk", "imtf_chunk", "full_rounds", "sparse_cap_div",
          "tier1_rounds", "tier2_div", "pallas_sort", "lf2")
 
 # the stages that the compress programs mark (models/pipeline.py)
-STAGES = ("bwt", "mtf", "entropy")
+STAGES = ("rle1", "bwt", "mtf", "entropy")
 # counts since the process started (or reset_stats): programs run, cache
 # hits, warm-ups, captures and their seconds, graphs captured, graph
 # replays (a loop body's every round counted), flag reads, and each

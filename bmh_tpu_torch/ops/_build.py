@@ -51,6 +51,7 @@ SOURCES = {
     "sort3": "sort3.cu",
     "code_lengths": "code_lengths.cu",
     "mtf_forward": "mtf_forward.cu",
+    "rle1_encode": "rle1_encode.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}

@@ -99,10 +99,8 @@ def compress_stream(data: bytes | np.ndarray, block_size: int,
     arr = api._as_array(data)
     blocks = container.split_blocks(arr, block_size)
     mine = [i for i in range(len(blocks)) if i % pcount == pid]
-    pre, raw_lens = api._rle1_blocks([blocks[i] for i in mine])
-    results = backend.compress_blocks(pre, stride)
-    local = {i: api._pack_block(r, raw_len)
-             for i, r, raw_len in zip(mine, results, raw_lens)}
+    results = backend.compress_blocks([blocks[i] for i in mine], stride)
+    local = {i: api._pack_block(r, blocks[i].size) for i, r in zip(mine, results)}
     if pcount == 1:
         packed = [local[i] for i in range(len(blocks))]
     else:

@@ -40,6 +40,12 @@ Cases (default all):
            puts batch: 32 blocks of about 4000 bytes in 128 KiB rows):
            kernel K7 against its plain version and its bound (n bytes in
            and n out a row over 3.35 TB/s)
+  rle1     RLE1 of raw rows at the main path's three shapes (32 x 128 KiB
+           and 32 x 1 MiB of the seeded text, which RLE1 leaves whole, and
+           a puts batch: 32 rows of 3997-4000 bytes in 128 KiB rows, with
+           the zero-padded keys of a key-value block, which it shrinks):
+           kernel K8 against its plain version and its bound (n bytes in a
+           row and the (rows, nmax) output over 3.35 TB/s)
   decode   kernels K1-K4 (phase_a, phase_b, imtf_chunks, ibwt_walk) on the
            arguments a real decode of 32 blocks of 128 KiB of the seeded
            text gave them, each against its plain version (K4's: one row
@@ -72,7 +78,7 @@ import torch
 
 B, NMAX = 32, 1 << 17
 CASES = ("bitpack", "sort", "lf", "prims", "radix", "compose", "place", "hist",
-         "ibwt", "sparse", "code_lengths", "mtf_forward", "decode")
+         "ibwt", "sparse", "code_lengths", "mtf_forward", "rle1", "decode")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
@@ -328,16 +334,15 @@ def bench_ibwt(t: Timer, seed: int) -> dict:
 
 
 def bench_sparse(t: Timer, seed: int) -> dict:
-    from .. import api
     from ..models import pipeline
     from ..ops import bwt
-    from ..utils import config, synth
+    from ..utils import config, nativeio, synth
 
     cfg = config.DEFAULT
     text = np.frombuffer(synth.smoke_input(seed, text_bytes=B * NMAX,
                                            random_bytes=0), np.uint8)
     raw = [text[i:i + NMAX] for i in range(0, text.size, NMAX)]
-    blocks = [x for x in api._rle1_blocks(raw)[0]
+    blocks = [x for x in map(nativeio.rle1_encode, raw)
               if not pipeline._looks_pathological(x)][:B]
     batch = np.zeros((B, NMAX), np.uint8)
     for i, x in enumerate(blocks):
@@ -422,6 +427,47 @@ def bench_mtf_forward(t: Timer, seed: int) -> dict:
                             "extended by its incoming list (no Pallas kernel)"}
 
 
+def rle1_inputs(seed: int) -> dict:
+    """RLE1's inputs on the main path's three shapes, by label: (data, n),
+    rows of the seeded text of utils/synth.py, zero past n.  The puts rows
+    hold 3997-4000 bytes each, eight "0" bytes (a key's padding) in every
+    128 of them, as a key-value block carries; RLE1 shrinks such a row."""
+    from ..utils import synth
+
+    out = {}
+    for label, nmax, short in (("32x128k", NMAX, False), ("32x1m", 1 << 20, False),
+                               ("puts_32x128k", NMAX, True)):
+        text = synth.smoke_input(seed, text_bytes=B * nmax, random_bytes=0)
+        batch = np.frombuffer(text[: B * nmax], np.uint8).reshape(B, nmax).copy()
+        n = np.full(B, nmax, dtype=np.int64)
+        if short:
+            n = 3997 + np.random.default_rng(seed).integers(0, 4, B)
+            batch.reshape(B, -1, 128)[:, :, 16:24] = ord("0")
+            batch[np.arange(nmax)[None, :] >= n[:, None]] = 0
+        out[label] = (torch.from_numpy(batch).cuda(), torch.from_numpy(n).cuda())
+    return out
+
+
+def bench_rle1(t: Timer, seed: int) -> dict:
+    from ..ops import rle
+
+    ms, bound, equal, shrunk = {}, {}, {}, {}
+    for label, (data, n) in rle1_inputs(seed).items():
+        forms = {"k8": functools.partial(rle.rle1_encode, data, n),
+                 "plain": functools.partial(rle.rle1_encode_plain, data, n)}
+        got, want = (f() for f in forms.values())
+        equal[f"rows and lengths {label} (K8, plain)"] = all(map(torch.equal, got, want))
+        shrunk[label] = int((got[1] < n).sum())
+        for form, f in forms.items():
+            ms[f"rle1_{form}_{label}"] = t(f)
+        bound[label] = (int(n.sum()) + data.numel() + 16 * n.numel()) / PEAK_BYTES_PER_S * 1e3
+    return {"ms": ms, "bound_ms": bound, "equal": equal, "rows_shrunk": shrunk,
+            "port_uses": "rle1_k8 (ops/rle.rle1_encode on a card, inside the compress "
+                         "program)",
+            "bmh_tpu_uses": "the host's RLE1 (csrc/bmh_io.cpp), block by block, "
+                            "before the first dispatch (no device kernel)"}
+
+
 # kernel (its _build.LAUNCHES name) -> (label, module under ops/, wrapper,
 # plain version)
 KERNELS = {
@@ -432,6 +478,7 @@ KERNELS = {
     "sort3": ("K5", "sort_kernel", "sort3", "sort3_plain"),
     "code_lengths": ("K6", "huffman", "code_lengths_device", "code_lengths_plain"),
     "mtf_forward": ("K7", "mtf", "mtf_forward", "mtf_forward_plain"),
+    "rle1_encode": ("K8", "rle", "rle1_encode", "rle1_encode_plain"),
 }
 DECODE = ("gap_decode_phase_a", "gap_decode_phase_b", "imtf_chunks", "ibwt_walk")
 

@@ -117,17 +117,18 @@ def _rle1_decode_py(a: np.ndarray) -> np.ndarray:
 
 
 def rle1_encode(a: np.ndarray) -> np.ndarray:
-    """RLE1 pre-BWT run collapse; native C when built, Python spec else."""
+    """RLE1 pre-BWT run collapse where it strictly shrinks `a`, else `a`
+    itself (the codec applies RLE1 only where it shrinks a block); native C
+    when built, Python spec else."""
     a = np.ascontiguousarray(a, dtype=np.uint8)
     lib = _load()
     if lib is None:
-        return _rle1_encode_py(a)
+        out = _rle1_encode_py(a)
+        return out if out.size < a.size else a
     cap = a.size + 8
     out = np.empty(cap, dtype=np.uint8)
     m = lib.bmh_rle1_encode(a.ctypes.data, a.size, out.ctypes.data, cap)
     if m >= a.size:
-        # not strictly smaller: hand back the input (callers apply RLE1
-        # only when it shrinks)
         return a
     return out[:m]
 

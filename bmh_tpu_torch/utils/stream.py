@@ -137,8 +137,7 @@ def compress_file_resumable(in_path: str, out_path: str,
     resumed_from = sc.blocks_done
     try:
         for blk in blocks[resumed_from:]:
-            (pre,), (raw_len,) = api._rle1_blocks([blk])
-            sc.append(api._pack_block(be.compress_blocks([pre], stride)[0], raw_len))
+            sc.append(api._pack_block(be.compress_blocks([blk], stride)[0], blk.size))
     except BaseException:
         sc.close()  # the blocks appended so far stay for a resume
         raise

@@ -18,7 +18,7 @@ first call (tools/microbench.capture_kernel_inputs):
   gets            their containers through decompress_many(uniform=True):
                   bit-exact
   archive 1 MiB   32 MiB of seeded text at 1 MiB blocks, both ways: bit-exact
-Then every kernel (K1-K7) is held against its plain version, exactly, on
+Then every kernel (K1-K8) is held against its plain version, exactly, on
 the arguments each path gave it (microbench.hold), and each must have
 launched on some path.  The line before the last is the kernels line
 ({"kernels": [...]}: per kernel its launches by path, the paths it was
@@ -38,7 +38,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 BLOCK = 1 << 17
-ENCODE = ("sort3", "code_lengths", "mtf_forward")
+ENCODE = ("sort3", "code_lengths", "mtf_forward", "rle1_encode")
 
 
 def require(ok: bool, what: str) -> None:

@@ -7,8 +7,8 @@ bucket and a tail in the 2^19 bucket: both compress programs (the
 sparse/adaptive one, and the full-rounds one that a run-dominated batch
 takes) must write the plain reference's container (bmhbench/reference.py)
 byte for byte, and decode it.  Run eagerly, each compress batch opens the
-three stage spans once and counts no stage time: only a card's replays
-are timed."""
+four stage spans (RLE1 included: the program takes the raw blocks) once
+and counts no stage time: only a card's replays are timed."""
 
 import numpy as np
 import pytest
@@ -20,7 +20,7 @@ from bmhbench import reference
 from bmhbench.generators import zipf_text
 
 MIB = 1 << 20
-STAGES = ("stage.bwt", "stage.mtf", "stage.entropy")
+STAGES = ("stage.rle1", "stage.bwt", "stage.mtf", "stage.entropy")
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_eager_compress_opens_each_stage_span_once_a_batch(monkeypatch):
         blob = bt.compress_bytes(data, 8192, device="cpu")
     assert bt.decompress_bytes(blob, device="cpu") == data
     counts = rec.counts()
-    assert [counts.get(s) for s in STAGES] == [counts["programs.run"]] * 3 == [3] * 3
+    assert [counts.get(s) for s in STAGES] == [counts["programs.run"]] * 4 == [3] * 4
     by_id = {s[0]: s for s in rec.spans}
     for s in rec.spans:
         if s[4] in STAGES:

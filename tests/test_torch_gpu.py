@@ -1,4 +1,4 @@
-"""bmh_tpu_torch on a CUDA card: each kernel (K1-K7) against its plain
+"""bmh_tpu_torch on a CUDA card: each kernel (K1-K8) against its plain
 PyTorch version, the codec round trip against its CPU run, and the card's
 containers against bmh_tpu's recorded digests (tests/data/torch_golden.json).
 
@@ -28,8 +28,9 @@ from bmh_tpu_torch.ops import decode_kernels as dk
 from bmh_tpu_torch.ops import huffman as thuf
 from bmh_tpu_torch.ops import ibwt_kernel, imtf_kernel, sort_kernel
 from bmh_tpu_torch.ops import mtf as tmtf
+from bmh_tpu_torch.ops import rle as trle
 from bmh_tpu_torch.tools import microbench
-from bmh_tpu_torch.utils import config, synth
+from bmh_tpu_torch.utils import config, container, synth
 
 pytestmark = pytest.mark.gpu
 
@@ -398,6 +399,8 @@ def test_wrappers_reject_bad_inputs(cuda):
                             (data, n.cpu())):                 # n off the card
         with pytest.raises(ValueError, match="mtf_forward"):
             tmtf.mtf_forward(bad_data, bad_n, 128)
+        with pytest.raises(ValueError, match="rle1_encode"):
+            trle.rle1_encode(bad_data, bad_n)
 
 
 CODE_LENGTH_CASES = ["edges", "one", "two", "all_257", "fibonacci", "random", "empty",
@@ -536,6 +539,156 @@ def test_mtf_forward_kernel_in_a_captured_compress_program(cuda, monkeypatch, ha
     assert torch.equal(other(*inputs), eager)
     monkeypatch.setattr(tmtf, "mtf_forward", tmtf.mtf_forward_plain)
     assert torch.equal(fn(*inputs), eager)
+
+
+RLE1_CASES = ["text_32x128k", "text_32x1m", "puts", "zeros", "long_runs", "lane_edges",
+              "n_edges", "odd_nmax"]
+
+
+def _rle1_case(case: str):
+    """(data (B, Nmax) uint8, n (B,)) on the host for one K8 case."""
+    from bmhbench.generators import rocksdb_blocks, zipf_text
+
+    rng = np.random.default_rng(8)
+    nmax = 1 << 17
+    n = None
+    if case.startswith("text"):  # the stream cells' text: no row shrinks
+        nmax = nmax if case == "text_32x128k" else 1 << 20
+        data = np.frombuffer(zipf_text.stream(0, 32 * nmax, 0), np.uint8).reshape(32, nmax)
+    elif case == "puts":  # RocksDB data blocks in 128 KiB rows: every row shrinks
+        blocks = rocksdb_blocks.make(2**31 + 8, 32)
+        data = np.zeros((32, nmax), np.uint8)
+        for r, b in enumerate(blocks):
+            data[r, : len(b)] = np.frombuffer(b, np.uint8)
+        n = [len(b) for b in blocks]
+    elif case == "zeros":  # whole rows of one byte, and some of them short
+        data = np.zeros((8, nmax), np.uint8)
+        n = [nmax, 1, 2, 3, 4, 5, 259, 100000]
+    elif case == "long_runs":  # runs of 1 to 100,000 bytes
+        sym = rng.integers(0, 256, 4000)
+        data = np.repeat(sym, rng.choice([1, 3, 4, 5, 255, 256, 259, 5000, 100000], 4000))
+        data = data[: 16 * nmax].reshape(16, nmax)
+    elif case == "lane_edges":  # runs of 250 to 262 bytes, over every lane edge
+        sym = np.arange(20000) % 251
+        data = np.repeat(sym, rng.integers(250, 263, 20000))[: 8 * nmax].reshape(8, nmax)
+    else:  # rows with garbage past n, which the encoding must not see
+        nmax = 5000 if case == "odd_nmax" else nmax
+        data = np.repeat(rng.integers(0, 3, 300000), rng.integers(1, 9, 300000))
+        data = data[: 8 * nmax].reshape(8, nmax)
+        data[:, ::7] = rng.integers(0, 256, data[:, ::7].shape)
+        n = [0, 1, nmax, 1, 1023, 1025, nmax - 1, 4097 % nmax]
+    b = data.shape[0]
+    return (np.ascontiguousarray(data, dtype=np.uint8),
+            np.asarray(n if n is not None else [nmax] * b, dtype=np.int64))
+
+
+@pytest.mark.parametrize("case", RLE1_CASES)
+def test_rle1_kernel_matches_plain(cuda, case):
+    """K8 against the plain version, rows and lengths byte for byte, in one
+    call: the stream's text at (32, 131072) and (32, 1048576), a puts batch
+    of RocksDB blocks, rows of zeros, runs of 1 to 100,000 bytes and runs
+    over every lane edge, rows of n = 0, 1 and on no lane boundary with
+    garbage past n, and rows that do not start on 16 bytes."""
+    data, n = _rle1_case(case)
+    d, nt = torch.from_numpy(data).to(cuda), torch.from_numpy(n).to(cuda)
+    _build.reset_launches()
+    got, n_out = trle.rle1_encode(d, nt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rle1_encode"] == 1
+    assert got.dtype == torch.uint8 and got.shape == d.shape and n_out.dtype == torch.int64
+    want, n_want = trle.rle1_encode_plain(d, nt)
+    assert torch.equal(n_out, n_want)
+    assert torch.equal(got, want)
+    shrunk = int((n_out < nt).sum())
+    if case.startswith("text"):
+        assert shrunk == 0
+    if case in ("puts", "long_runs"):
+        assert shrunk == data.shape[0]
+
+
+@pytest.mark.parametrize("hard", [False, True], ids=["sparse", "full_rounds"])
+def test_rle1_kernel_in_a_captured_compress_program(cuda, hard):
+    """Both compress programs captured with K8 first: every replay equals
+    the eager run and adds one rle1_encode launch, and the eager run equals
+    the program without RLE1 on the rows the plain version collapsed (text
+    rows that stay, zero-page and RocksDB rows that shrink, a dummy row)."""
+    import functools
+
+    from bmh_tpu_torch.models import programs
+    from bmhbench.generators import rocksdb_blocks
+
+    _, (batch, ns), _, pipeline = _program_inputs(5)
+    batch, ns = batch.copy(), ns.copy()
+    batch[4:6] = np.frombuffer(synth.zero_pages(5, total=2 << 16), np.uint8).reshape(2, -1)
+    blk = np.frombuffer(rocksdb_blocks.make(5, 1)[0], np.uint8)
+    batch[6] = 0
+    batch[6, : blk.size] = blk
+    batch[7] = 0
+    ns[4:8] = [65536, 65536, blk.size, 1]
+    inputs = (torch.from_numpy(batch).to(cuda), torch.from_numpy(ns).to(cuda))
+    torch.cuda.synchronize()
+    fn = functools.partial(pipeline.compress_program, stride=4096, hard=hard, b_pad=8,
+                           rle1=True)
+    prog = programs._Program(programs._cache_for(cuda), fn, inputs)
+    prog.load(inputs)
+    prog.warm_up()
+    prog.capture()
+    eager = fn(*inputs)
+    _build.reset_launches()
+    for k in range(3):
+        prog.out.zero_()
+        prog.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(prog.out, eager)
+        assert _build.LAUNCHES["rle1_encode"] == k + 1
+    rows, n_pre = trle.rle1_encode_plain(*(x.cpu() for x in inputs))
+    assert (n_pre < torch.from_numpy(ns)).tolist() == [False] * 4 + [True] * 3 + [False]
+    plain = pipeline.compress_program(rows.to(cuda), n_pre.to(cuda), 4096, hard, 8)
+    assert torch.equal(plain, eager)
+
+
+def _rocksdb_blocks(seed: int, count: int) -> list[bytes]:
+    from bmhbench.generators import rocksdb_blocks
+
+    return rocksdb_blocks.make(seed, count)
+
+
+# input -> (streams, block size, uniform, rows per path: device, device
+# collapsed, host)
+RLE1_PATHS = {"stream_text": (lambda: [synth.smoke_input(8, text_bytes=3 << 20)], 1 << 17,
+                              False, (32, 0, 0)),
+              "puts": (lambda: _rocksdb_blocks(8, 32), 1 << 17, True, (32, 32, 0)),
+              "zero_pages": (lambda: [synth.zero_pages(8, total=4 << 20)], 1 << 17, False,
+                             (0, 0, 32)),
+              "zero_pages_uniform": (lambda: [synth.zero_pages(8, total=4 << 20)], 1 << 17,
+                                     True, (32, 32, 0))}
+
+
+@pytest.mark.parametrize("case", list(RLE1_PATHS))
+def test_rle1_on_each_path_gives_the_host_pass_containers(cuda, case, monkeypatch):
+    """compress_many on the card, RLE1 on the card or (run-heavy blocks
+    where no bucket is forced) on the host: the containers of the host's
+    RLE1 pass before the backend with RLE1 off (which takes the blocks as
+    they are), every block counted on the path the rule gives it, and back
+    bit-exact."""
+    from bmh_tpu_torch.models import pipeline
+    from bmh_tpu_torch.utils import config, nativeio
+
+    make, bs, uniform, paths = RLE1_PATHS[case]
+    datas = make()
+    keys = ("rle1_device_rows", "rle1_device_collapsed", "rle1_host_rows")
+    before = dict(pipeline.UPLOADS)
+    blobs = bt.compress_many(datas, block_size=bs, uniform=uniform, device=cuda)
+    assert tuple(pipeline.UPLOADS[k] - before[k] for k in keys) == paths
+    assert bt.decompress_many(blobs, uniform=uniform, device=cuda) == datas
+    be = bt.api.get_backend("torch", cuda)
+    kw = {"bucket": bs} if uniform else {}
+    monkeypatch.setattr(config.DEFAULT, "rle1", False)
+    for d, blob in zip(datas, blobs):
+        raw = container.split_blocks(np.frombuffer(d, np.uint8), bs)
+        blocks = [nativeio.rle1_encode(b) for b in raw]
+        assert blob == bt.api._pack(be.compress_blocks(blocks, 4096, **kw),
+                                    [b.size for b in raw], bs, len(d), 4096)
 
 
 def test_decode_on_side_streams_while_another_batch_runs(cuda):

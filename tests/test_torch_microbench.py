@@ -20,7 +20,7 @@ RENAMED = {"cumsum_4M_u32": "cumsum_4M"}
 def test_case_list():
     assert microbench.CASES == ("bitpack", "sort", "lf", "prims", "radix",
                                 "compose", "place", "hist", "ibwt", "sparse",
-                                "code_lengths", "mtf_forward", "decode")
+                                "code_lengths", "mtf_forward", "rle1", "decode")
     assert set(microbench.BENCHES) == set(microbench.CASES)
     assert all(callable(f) for f in microbench.BENCHES.values())
 

@@ -17,11 +17,12 @@ import bmh_tpu_torch as bt
 from bmh_tpu_torch.utils import tracing
 
 BS = 4096
-API = {"api.compress", "api.split", "api.rle1", "api.pack",
+API = {"api.compress", "api.split", "api.pack",
        "api.decompress", "api.parse", "api.validate", "api.restore", "api.join"}
-PIPELINE = {"pipeline.group", "pipeline.stage", "compress_assemble", "pipeline.drain"}
+PIPELINE = {"pipeline.group", "pipeline.rle1", "pipeline.stage", "compress_assemble",
+            "pipeline.drain"}
 PROGRAMS = {"programs.run", "programs.flag", "programs.wait"}
-STAGES = {"stage.bwt", "stage.mtf", "stage.entropy"}  # run eagerly: spans only
+STAGES = {"stage.rle1", "stage.bwt", "stage.mtf", "stage.entropy"}  # run eagerly: spans only
 DISPATCH = ("compress_dispatch_b", "decompress_dispatch_b", "decompress_single_b")
 
 

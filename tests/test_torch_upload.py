@@ -133,7 +133,14 @@ def test_compress_many_uniform_takes_the_compact_path(thirty_files):
     sent = tpipe.UPLOADS["bytes"] - before["bytes"]
     assert sent == Q + 2 * 8 * 30 and tpipe.UPLOADS["plain_bytes"] - before[
         "plain_bytes"] == 30 * 131072
-    assert blobs == japi.compress_many(thirty_files, block_size=131072, uniform=True)
+    try:
+        want = japi.compress_many(thirty_files, block_size=131072, uniform=True)
+    finally:
+        # bmh_tpu's own test of this case (tests/test_pipeline.py) counts its
+        # inflate program's cache misses: leave it no entry to find, in
+        # whichever order a test process runs the two files
+        jpipe._inflate_prog.cache_clear()
+    assert blobs == want
     assert blobs == [bt.compress_bytes(d, block_size=131072, device="cpu")
                      for d in thirty_files]
     assert bt.decompress_many(blobs, uniform=True, device="cpu") == thirty_files
